@@ -1,0 +1,22 @@
+"""orbslam2_tpu_torch: the PyTorch and CUDA port of orbslam2_tpu.
+
+The JAX package (orbslam2_tpu) is the reference; this package mirrors its
+module paths and runs on PyTorch, with the TPU kernel rewritten by hand for
+NVIDIA Hopper (csrc/hamming.cu). It never imports jax or orbslam2_tpu.
+
+So far the port covers RGB-D tracking with the local mapper off:
+System(cfg, device="cuda").track_rgbd(...). See ROADMAP.md for the rest.
+"""
+import torch as _torch
+
+# Geometry (pose LM, later BA and triangulation) is accuracy-critical: reduced-
+# precision matmuls doubled the ATE in the JAX package (orbslam2_tpu/__init__.py).
+# Full f32 everywhere.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .config import Sensor, SlamConfig, OrbParams, load_settings, with_camera  # noqa: F401,E402
+from .io.trajectory import save_tum as save_trajectory_tum  # noqa: F401,E402
+from .system import System  # noqa: F401,E402
+
+__version__ = "0.1.0"

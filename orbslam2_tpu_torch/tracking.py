@@ -1,0 +1,762 @@
+"""Per-frame tracking: the front-end state machine (RGB-D and its fallbacks).
+
+Counterpart of orbslam2_tpu/tracking.py (src/Tracking.cpp), the subset that
+tracks RGB-D frames with the local mapper and relocalizer off:
+
+- steady state: one fused call per frame (engine_step.track_frame_full) on
+  the device, one readback, then host bookkeeping;
+- first frame: StereoInitialization from depth;
+- fallbacks (staged): TrackWithMotionModel, TrackReferenceKeyFrame (the
+  no-vocabulary ratio match) and TrackLocalMap, on the same kernels;
+- keyframes: NeedNewKeyFrame's rule set and CreateNewKeyFrame with
+  close-depth point spawning.
+
+State machine {NOT_INITIALIZED, OK, LOST} (include/Tracking.h:81-87).
+Monocular initialization, relocalization, the block driver and
+localization-only mode are later steps of the port (ROADMAP.md queue 1)
+and raise NotImplementedError here.
+"""
+from __future__ import annotations
+
+from enum import IntEnum
+
+import numpy as np
+import torch
+
+from . import engine_step as ES
+from .config import SlamConfig, Sensor
+from .frontend import matcher as FM
+from .frontend.frame import Frame, FrameBuilder
+from .geometry import camera as cam_mod
+from .geometry import se3_np
+from .map.mapstate import MapState
+from .ops import features as F
+from .ops import pose_opt as PO
+from .ops import refine as RF
+
+
+class TrackState(IntEnum):
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+
+DEPTH_WIRE_Q = 2048.0  # fixed-point depth: 1/2048 m (0.49 mm), 32 m range
+
+
+def _depth_wire(depth_map: np.ndarray, cfg_factor: float):
+    """Depth map in the JAX package's wire form: (u16 array, scale to
+    meters). u16 maps pass as they are (TUM depth PNGs are u16 sensor
+    units); float maps are quantized to 1/2048 m. The quantization is part
+    of the result (the fused frame's depths come from it), so the port
+    keeps it."""
+    if depth_map.dtype == np.uint16:
+        return depth_map, float(cfg_factor)
+    if cfg_factor < 1.0 / 1024.0:
+        # float carrying raw u16 sensor units: the round trip is exact
+        return np.round(depth_map).astype(np.uint16), float(cfg_factor)
+    m = np.asarray(depth_map, np.float32) * np.float32(cfg_factor)
+    q = m * np.float32(DEPTH_WIRE_Q)
+    # out-of-range depth (>= 32 m) becomes 0 = "no depth"
+    q = np.where((q >= 65535.0) | (q < 0.0), 0.0, q)
+    return q.astype(np.uint16), 1.0 / DEPTH_WIRE_Q
+
+
+def _to_u8(patch: np.ndarray) -> np.ndarray:
+    """Photometric windows rounded to u8, as the map stores them. The JAX
+    package carries the last frame's windows in this form, so the rounding
+    is part of the result."""
+    return np.clip(np.round(patch), 0, 255).astype(np.uint8)
+
+
+def _ensure_patch(frame: Frame):
+    """Read a fused frame's photometric windows back from the device
+    (deferred: they are only needed for fallback matching and keyframe
+    creation)."""
+    pd = getattr(frame, "_patch_dev", None)
+    if frame.patch is None and pd is not None:
+        frame.patch = pd.cpu().numpy().astype(np.float32)
+        frame._patch_dev = None
+
+
+class Tracker:
+    def __init__(self, cfg: SlamConfig, mp: MapState, local_mapper=None,
+                 relocalizer=None, device: torch.device | str = "cpu"):
+        if local_mapper is not None or relocalizer is not None:
+            raise NotImplementedError(
+                "local mapping and relocalization are not ported yet "
+                "(ROADMAP.md queue 1)")
+        self.cfg = cfg
+        self.map = mp
+        self.device = torch.device(device)
+        self.local_mapper = None
+        self.relocalizer = None
+        self.reset_callback = None  # wired by System (System::Reset path)
+        self.sf = F.scale_factors(cfg.orb)
+        self.sigma2 = F.sigma2_per_octave(cfg.orb)
+        self.builder = FrameBuilder(cfg, self.device)
+
+        self.state = TrackState.NOT_INITIALIZED
+        self.last_frame: Frame | None = None
+        self.velocity: np.ndarray | None = None  # T_cur_last [3,4]
+        self.ref_kf: int = -1
+        self.last_kf_frame_id: int = -1
+        self.init_frame_id: int = -1
+        self.matches_inliers: int = 0
+        # trajectory log: (timestamp, ref_kf, T_frame_wrt_refkf, lost)
+        # (mlRelativeFramePoses etc., include/Tracking.h:109-112)
+        self.frame_log: list[tuple[float, int, np.ndarray, bool]] = []
+        self.n_lost_frames = 0
+        # fused-path state: device mirror of the map point table and the
+        # last frame's device-side feature tensors (chained between frames)
+        self._mirror = None
+        self._mirror_gen = -1
+        self._last_dev = None
+        self._last_dev_frame_id = -1
+        self._sf_dev = self._dev(self.sf)
+        self._sig2_dev = self._dev(self.sigma2)
+
+    # ------------------------------------------------------------------ utils
+    def _dev(self, a) -> torch.Tensor:
+        """Host numpy array -> tensor on the tracker's device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _refine_measurements(self, frame: Frame, mask: np.ndarray,
+                             templates: np.ndarray):
+        """Feature-metric re-measurement (ops/refine.py): align the masked
+        features' windows to the given templates [N, 11, 11] and shift their
+        measured positions by the recovered offset. Skips features already
+        refined this frame (windows are centered on the ORIGINAL detection,
+        so a second application would double-count the shift)."""
+        _ensure_patch(frame)
+        if frame.patch is None:
+            return
+        if not hasattr(frame, "_refined"):
+            frame._refined = np.zeros(frame.capacity, bool)
+        mask = mask & ~frame._refined
+        if not mask.any():
+            return
+        delta, ok = RF.refine_offsets(
+            self._dev(frame.patch), self._dev(templates.astype(np.float32)),
+            self._dev(mask))
+        ok = ok.cpu().numpy() & mask
+        if not ok.any():
+            return
+        delta = delta.cpu().numpy()
+        frame._refined |= ok
+        sf = self.sf[np.clip(frame.octave, 0, len(self.sf) - 1)]
+        frame.xy_raw = frame.xy_raw + delta * (sf * ok)[:, None]
+        und = cam_mod.undistort_pixels(
+            self.cfg.camera, torch.from_numpy(frame.xy_raw)).numpy()
+        # the offset is measured in raw-image pixels; for the undistorted
+        # coords this assumes a locally-identity undistortion Jacobian
+        frame.xy = np.where(ok[:, None], und, frame.xy)
+        # the virtual right-u shifts with u (keeps ur == u - bf/z for RGB-D)
+        has_ur = ok & (frame.ur >= 0)
+        frame.ur = np.where(has_ur, frame.ur + delta[:, 0] * sf, frame.ur)
+
+    def _refine_against_points(self, frame: Frame, feat_mask: np.ndarray):
+        """Refine the masked features against their bound map points'
+        anchor templates."""
+        pt = np.clip(frame.pt_idx, 0, None)
+        mask = feat_mask & (frame.pt_idx >= 0)
+        if not mask.any():
+            return
+        self._refine_measurements(frame, mask, self.map.pt_patch[pt])
+
+    def _pose_optimize(self, frame: Frame) -> int:
+        """Motion-only BA on the frame's current point associations; prunes
+        outlier associations (src/Tracking.cpp:1034-1057). Returns the number
+        of MAP-point inliers (the reference's nmatchesMap, :1230-1241)."""
+        pt = frame.pt_idx
+        bound = (pt >= 0) & frame.valid & self.map.pt_valid[np.clip(pt, 0, None)]
+        ok = bound | (frame.tmp_valid & frame.valid)
+        pts_xyz = np.where(bound[:, None], self.map.pt_xyz[np.clip(pt, 0, None)],
+                           frame.tmp_xyz)
+        obs = np.concatenate([frame.xy, frame.ur[:, None]], -1).astype(np.float32)
+        is_st = frame.ur >= 0
+        info = (1.0 / self.sigma2)[np.clip(frame.octave, 0, len(self.sigma2) - 1)]
+        cam = self.cfg.camera
+        res = PO.pose_optimize(
+            self._dev(frame.pose), self._dev(pts_xyz.astype(np.float32)),
+            self._dev(obs), self._dev(is_st & ok),
+            self._dev(info.astype(np.float32)), self._dev(ok),
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+        frame.pose = res.T.cpu().numpy()
+        inl = res.inliers.cpu().numpy()
+        frame.pt_idx = np.where(ok & ~inl, -1, frame.pt_idx)
+        frame.tmp_valid = frame.tmp_valid & inl
+        return int((inl & bound).sum())
+
+    # ------------------------------------------------------------- main entry
+    def process_image(self, img: np.ndarray, timestamp: float,
+                      depth_map: np.ndarray | None = None,
+                      right_img: np.ndarray | None = None) -> np.ndarray | None:
+        if self.cfg.sensor == Sensor.MONOCULAR:
+            raise NotImplementedError(
+                "monocular initialization is not ported yet (ROADMAP.md "
+                "queue 1, mono init: ops/twoview.py, mono_init_step)")
+        if (self.state == TrackState.OK and self.last_frame is not None
+                and self.last_frame.pose is not None):
+            # steady state: the whole per-frame hot path is one fused call
+            # on the device + one readback. velocity None (first frame after
+            # init) runs it with a zero-velocity prediction; the staged
+            # TrackReferenceKeyFrame fallback fires when that fails.
+            return self._track_fused(img, timestamp, depth_map)
+        frame = self.builder.build(img, timestamp, depth_map=depth_map,
+                                   right_img=right_img)
+        return self.track(frame)
+
+    def track(self, frame: Frame) -> np.ndarray | None:
+        # staged path: init and fallbacks, under the map lock for the whole
+        # frame (the reference holds mMutexMapUpdate, src/Tracking.cpp:336)
+        with self.map.lock:
+            return self._track_locked(frame)
+
+    def _track_locked(self, frame: Frame) -> np.ndarray | None:
+        if self.state == TrackState.NOT_INITIALIZED:
+            self._stereo_initialization(frame)
+            if self.state == TrackState.OK:
+                self._log_frame(frame, lost=False)
+                return frame.pose
+            return None
+
+        # CheckReplacedInLastFrame (src/Tracking.cpp:372)
+        if self.last_frame is not None:
+            self.last_frame.pt_idx = self.map.resolve_point_ids(
+                self.last_frame.pt_idx)
+        self.map.release_retired_points()
+
+        ok = False
+        if self.state == TrackState.OK:
+            if self.velocity is not None:
+                ok = self._track_with_motion_model(frame)
+            if not ok:
+                ok = self._track_reference_keyframe(frame)
+        else:  # LOST: no relocalizer yet; retry against the reference KF
+            ok = self._track_reference_keyframe(frame)
+
+        if ok:
+            ok = self._track_local_map(frame)
+
+        return self._finish_frame(frame, ok)
+
+    def _finish_frame(self, frame: Frame, ok: bool) -> np.ndarray | None:
+        """Shared per-frame tail: state transition, velocity update, keyframe
+        decision, trajectory log (the end of Tracking::Track,
+        src/Tracking.cpp:526-626)."""
+        if ok:
+            self.state = TrackState.OK
+            if self.last_frame is not None and self.last_frame.pose is not None:
+                # orthonormalized: f32 scale leakage in this composition is
+                # amplified by the prediction recurrence
+                self.velocity = se3_np.orthonormalize(se3_np.compose(
+                    frame.pose, se3_np.inverse(self.last_frame.pose)))
+            if self._need_new_keyframe(frame):
+                self._create_keyframe(frame)
+            self.n_lost_frames = 0
+        else:
+            self.state = TrackState.LOST
+            self.velocity = None
+            self.n_lost_frames += 1
+            # reset when lost right after initialization with a tiny map
+            # (src/Tracking.cpp:590-598), and only for an EARLY loss
+            early = (self.init_frame_id >= 0 and
+                     frame.frame_id - self.init_frame_id <= 10)
+            if (self.map.n_keyframes <= 5 and self.n_lost_frames == 1
+                    and early and self.reset_callback is not None
+                    and self.map.n_keyframes > 0):
+                self.reset_callback()
+
+        self._log_frame(frame, lost=not ok)
+        self.last_frame = frame
+        return frame.pose if ok else None
+
+    def _log_frame(self, frame: Frame, lost: bool):
+        if frame.pose is None or self.ref_kf < 0:
+            self.frame_log.append((frame.timestamp, -1,
+                                   np.eye(3, 4, dtype=np.float32), True))
+            return
+        T_ref = self.map.kf_pose[self.ref_kf]
+        T_rel = se3_np.compose(frame.pose, se3_np.inverse(T_ref))
+        self.frame_log.append((frame.timestamp, self.ref_kf, T_rel, lost))
+
+    # --------------------------------------------------------- initialization
+    def _stereo_initialization(self, frame: Frame):
+        """StereoInitialization (src/Tracking.cpp:637-727): single-frame
+        bootstrap from depth."""
+        if frame.n_valid < 500:
+            return
+        mp = self.map
+        frame.pose = se3_np.identity()
+        has_depth = (frame.depth > 0) & frame.valid
+        ids = np.flatnonzero(has_depth)
+        if len(ids) < 100:
+            return
+        z = frame.depth[ids]
+        cam = self.cfg.camera
+        x = (frame.xy[ids, 0] - cam.cx) / cam.fx * z
+        y = (frame.xy[ids, 1] - cam.cy) / cam.fy * z
+        X = np.stack([x, y, z], -1).astype(np.float32)
+        pt_ids = mp.add_points(X, frame.desc[ids], ref_kf=0, first_kf=0,
+                               patch=(RF.template_of(frame.patch[ids])
+                                      if frame.patch is not None else None))
+        pt_of = np.full(frame.capacity, -1, np.int32)
+        pt_of[ids] = pt_ids
+        mp.add_keyframe(frame.pose, frame.timestamp, frame.frame_id, frame.xy,
+                        frame.octave, frame.angle, frame.desc, frame.valid,
+                        pt_of, depth=frame.depth, ur=frame.ur,
+                        patch=frame.patch, xy0=frame.xy0, ur0=frame.ur0)
+        mp.refresh_point_stats(pt_ids)
+        frame.pt_idx = pt_of
+        self.ref_kf = 0
+        self.last_kf_frame_id = frame.frame_id
+        self.last_frame = frame
+        self.init_frame_id = frame.frame_id
+        self.state = TrackState.OK
+
+    # --------------------------------------------------------------- tracking
+    def _track_with_motion_model(self, frame: Frame) -> bool:
+        """TrackWithMotionModel (src/Tracking.cpp:1161-1243), staged."""
+        last = self.last_frame
+        frame.pose = se3_np.orthonormalize(
+            se3_np.compose(self.velocity, last.pose))
+        pt = last.pt_idx
+        ok = (pt >= 0) & self.map.pt_valid[np.clip(pt, 0, None)]
+        if ok.sum() < 10:
+            return False
+        pts_xyz = self.map.pt_xyz[np.clip(pt, 0, None)]
+        pt_desc = self.map.pt_desc[np.clip(pt, 0, None)]
+        cam = self.cfg.camera
+        th = 7.0 if self.cfg.sensor != Sensor.MONOCULAR else 15.0
+        for radius_th in (th, 2 * th):  # widening retry (src/Tracking.cpp:1192)
+            res = FM.match_motion_model(
+                self._dev(frame.pose), self._dev(pts_xyz), self._dev(ok),
+                self._dev(pt_desc), self._dev(last.octave),
+                self._dev(last.angle), self._dev(frame.xy),
+                self._dev(frame.octave), self._dev(frame.desc),
+                self._dev(frame.valid), self._dev(frame.angle),
+                self._dev(frame.ur), self._sf_dev,
+                cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, float(radius_th))
+            midx = res.idx.cpu().numpy()
+            n = int((midx >= 0).sum())
+            if n >= 20:
+                break
+        if n < 20:
+            return False
+        frame.pt_idx = np.full(frame.capacity, -1, np.int32)
+        src = np.flatnonzero(midx >= 0)
+        frame.pt_idx[midx[src]] = pt[src]
+        self._refine_against_points(frame, frame.pt_idx >= 0)
+        n_inl = self._pose_optimize(frame)
+        self.matches_inliers = n_inl
+        return n_inl >= 10
+
+    def _track_reference_keyframe(self, frame: Frame) -> bool:
+        """TrackReferenceKeyFrame (src/Tracking.cpp:1007-1063) with the
+        ungated ratio match (no vocabulary in the port yet)."""
+        if self.ref_kf < 0:
+            return False
+        mp = self.map
+        k = self.ref_kf
+        has_pt = mp.kf_pt[k] >= 0
+        res = FM.match_descriptors_ratio(
+            self._dev(mp.kf_desc[k]), self._dev(has_pt),
+            self._dev(mp.kf_angle[k]), self._dev(frame.desc),
+            self._dev(frame.valid), self._dev(frame.angle))
+        midx = res.idx.cpu().numpy()
+        if int((midx >= 0).sum()) < 15:
+            return False
+        frame.pose = (self.last_frame.pose.copy()
+                      if self.last_frame is not None and self.last_frame.pose is not None
+                      else mp.kf_pose[k].copy())
+        frame.pt_idx = np.full(frame.capacity, -1, np.int32)
+        src = np.flatnonzero(midx >= 0)
+        frame.pt_idx[midx[src]] = mp.kf_pt[k, src]
+        self._refine_against_points(frame, frame.pt_idx >= 0)
+        n_inl = self._pose_optimize(frame)
+        self.matches_inliers = n_inl
+        return n_inl >= 10
+
+    # ----------------------------------------------------------- fused frame
+    def _refresh_mirror(self):
+        """Sync the device mirror of the map point table: rows dirtied since
+        the last sync are copied in place (`index_copy_` on the mirror
+        tensors, the counterpart of engine_step.mirror_scatter); a new table
+        shape or unknown churn uploads it whole. Patches go as u8 (the
+        map's window storage)."""
+        mp = self.map
+        if self._mirror is not None and self._mirror_gen == mp.generation:
+            return
+
+        def host_rows(ids=None):
+            sl = slice(None) if ids is None else ids
+            return (mp.pt_xyz[sl], mp.pt_desc[sl], _to_u8(mp.pt_patch[sl]),
+                    mp.pt_normal[sl], mp.pt_min_dist[sl], mp.pt_max_dist[sl],
+                    mp.pt_valid[sl])
+
+        dirty = mp.drain_dirty_points()
+        if (self._mirror is None or dirty is None
+                or self._mirror[0].shape[0] != mp.pt_xyz.shape[0]):
+            self._mirror = tuple(self._dev(a) for a in host_rows())
+        elif len(dirty):
+            ids = self._dev(dirty.astype(np.int64))
+            for m, rows in zip(self._mirror, host_rows(dirty)):
+                m.index_copy_(0, ids, self._dev(rows))
+        self._mirror_gen = mp.generation
+
+    def _last_dev_arrays(self, last: Frame):
+        """Device tensors of the last frame's per-feature arrays — chained
+        from the previous fused output when possible, uploaded otherwise."""
+        if self._last_dev_frame_id != last.frame_id or self._last_dev is None:
+            _ensure_patch(last)
+            patch = last.patch if last.patch is not None else np.zeros(
+                (last.capacity, F.PATCH_WIN, F.PATCH_WIN), np.float32)
+            self._last_dev = dict(
+                xy=self._dev(last.xy), desc=self._dev(last.desc),
+                octave=self._dev(last.octave), angle=self._dev(last.angle),
+                patch=self._dev(_to_u8(patch)),
+                valid=self._dev(last.valid), depth=self._dev(last.depth))
+            self._last_dev_frame_id = last.frame_id
+        return self._last_dev
+
+    def _track_fused(self, img, timestamp, depth_map=None):
+        """Steady-state frame: one fused device call
+        (engine_step.track_frame_full) + one readback, then host bookkeeping.
+        Falls back to the staged path when the motion model fails."""
+        mp = self.map
+        cfg = self.cfg
+        cam = cfg.camera
+        last = self.last_frame
+        with mp.lock:
+            # CheckReplacedInLastFrame + quarantine release
+            # (src/Tracking.cpp:372)
+            last.pt_idx = mp.resolve_point_ids(last.pt_idx)
+            mp.release_retired_points()
+            self._refresh_mirror()
+
+            lp_pad, pvalid, best_kf = self._select_local_points(last.pt_idx)
+            if lp_pad is None:
+                frame = self.builder.build(img, timestamp, depth_map=depth_map)
+                return self.track(frame)
+
+            # velocity None -> zero-velocity prediction
+            T_pred = (last.pose if self.velocity is None
+                      else se3_np.orthonormalize(
+                          se3_np.compose(self.velocity, last.pose)))
+            sensor = "rgbd" if cfg.sensor == Sensor.RGBD else "mono"
+            img_dev = self._dev(img)
+            wire_factor = float(cfg.depth_map_factor)
+            if sensor == "rgbd":
+                d16, wire_factor = _depth_wire(depth_map, cfg.depth_map_factor)
+                aux = self._dev(d16.astype(np.int32))
+            else:
+                aux = img_dev
+            ld = self._last_dev_arrays(last)
+            out = ES.track_frame_full(
+                img_dev, aux, self._dev(T_pred), self._dev(last.pose),
+                self._dev(last.pt_idx), ld["xy"], ld["desc"], ld["octave"],
+                ld["angle"], ld["patch"], ld["valid"], ld["depth"],
+                torch.tensor(False, device=self.device),
+                *self._mirror, self._dev(lp_pad), self._dev(pvalid),
+                3.0 if self.n_lost_frames > 0 else 1.0,
+                self._sf_dev, self._sig2_dev,
+                params=self.builder.orb, cam=cam, sensor=sensor,
+                close_th=float(cfg.close_depth_threshold),
+                depth_factor=wire_factor,
+                log_scale=float(np.log(cfg.orb.scale_factor)))
+
+        # the frame's readback (the photometric windows stay on the device
+        # until a fallback or keyframe creation needs them)
+        hdr, fmat, imat, desc, in_frustum = (
+            t.cpu().numpy() for t in (out.hdr, out.fmat, out.imat, out.desc,
+                                      out.in_frustum))
+        T2 = hdr[12:24].reshape(3, 4)
+        n_cand, n_mm, n_inl1_map, n_inl2_map = (int(v) for v in hdr[24:28])
+        with mp.lock:
+            return self._track_fused_finish(
+                mp, cam, last, timestamp, T2, n_cand, n_mm, n_inl1_map,
+                n_inl2_map, imat[:, 1], imat[:, 2], fmat, imat, desc,
+                in_frustum, lp_pad, pvalid, best_kf, out)
+
+    def _track_fused_finish(self, mp, cam, last, timestamp, T2, n_cand, n_mm,
+                            n_inl1_map, n_inl2_map, kp_mm_row, kp_src_arr,
+                            fmat, imat, desc, in_frustum, lp_pad, pvalid,
+                            best_kf, out):
+        frame = Frame(
+            frame_id=self.builder._next_id, timestamp=timestamp,
+            xy=fmat[:, 0:2].copy(), xy_raw=fmat[:, 2:4].copy(),
+            octave=imat[:, 0].copy(), angle=fmat[:, 9].copy(),
+            response=fmat[:, 10].copy(), desc=desc,
+            valid=imat[:, 4] != 0, depth=fmat[:, 8].copy(),
+            ur=fmat[:, 6].copy(), patch=None,
+            xy0=fmat[:, 4:6].copy(), ur0=fmat[:, 7].copy())
+        frame._patch_dev = out.patch
+        self.builder._next_id += 1
+        frame._refined = imat[:, 3] != 0
+
+        N = frame.capacity
+        if not (n_cand >= 10 and n_mm >= 20 and n_inl1_map >= 10):
+            # staged fallback (TrackReferenceKeyFrame path); frame._refined
+            # prevents double refinement of what the fused call refined
+            self._last_dev = None
+            ok = self._track_reference_keyframe(frame)
+            if ok:
+                ok = self._track_local_map(frame)
+            return self._finish_frame(frame, ok)
+
+        # decode final bindings: kp_src is a last-frame slot (< N) or
+        # N + local-map row
+        src = kp_src_arr
+        is_mm = (src >= 0) & (src < N)
+        is_lp = src >= N
+        pt_from_mm = last.pt_idx[np.clip(src, 0, N - 1)]
+        frame.pt_idx = np.where(
+            is_mm, pt_from_mm,
+            np.where(is_lp, lp_pad[np.clip(src - N, 0, len(lp_pad) - 1)], -1)
+        ).astype(np.int32)
+        tmp_kp = is_mm & (pt_from_mm < 0)
+        frame.pt_idx[tmp_kp] = -1
+        frame.pt_idx = mp.resolve_point_ids(frame.pt_idx)
+        frame.tmp_valid = tmp_kp
+        if tmp_kp.any():
+            rows = src[tmp_kp]
+            z = last.depth[rows]
+            x = (last.xy[rows, 0] - cam.cx) / cam.fx * z
+            y = (last.xy[rows, 1] - cam.cy) / cam.fy * z
+            Rwc = last.pose[:, :3].T
+            Ow = -Rwc @ last.pose[:, 3]
+            frame.tmp_xyz[tmp_kp] = (np.stack([x, y, z], -1) @ Rwc.T + Ow
+                                     ).astype(np.float32)
+        frame.pose = T2.copy()
+        self.ref_kf = best_kf
+
+        # visibility / found bookkeeping (src/Tracking.cpp:1592-1616 + :1286)
+        surv_rows = kp_mm_row[kp_mm_row >= 0]
+        cur_pts = last.pt_idx[surv_rows]
+        cur_pts = cur_pts[cur_pts >= 0]
+        mp.pt_visible[lp_pad[in_frustum & pvalid]] += 1
+        mp.pt_visible[cur_pts] += 1
+        matched = frame.pt_idx[frame.pt_idx >= 0]
+        mp.pt_found[matched] += 1
+
+        n_inl = n_inl2_map
+        self.matches_inliers = n_inl
+        need = 50 if self.n_lost_frames > 0 else 30
+        ok = n_inl >= need
+        if ok:
+            # chain this frame's device tensors into the next fused call
+            self._last_dev = dict(
+                xy=out.fmat[:, 0:2], desc=out.desc, octave=out.imat[:, 0],
+                angle=out.fmat[:, 9], patch=out.patch,
+                valid=out.imat[:, 4] != 0, depth=out.fmat[:, 8])
+            self._last_dev_frame_id = frame.frame_id
+        else:
+            self._last_dev = None
+        return self._finish_frame(frame, ok)
+
+    # --------------------------------------------------------------- local map
+    def _select_local_points(self, ref_bindings: np.ndarray):
+        """Select the local-map slice from a frame's point bindings:
+        covisibility voting + neighbour expansion (UpdateLocalKeyFrames,
+        src/Tracking.cpp:1665-1760) then the covered point set
+        (UpdateLocalPoints, :1630-1663). Returns (lp_pad [cap] int32,
+        pvalid [cap] bool, best_kf) or (None, None, -1)."""
+        mp = self.map
+        cur_pts = ref_bindings[ref_bindings >= 0]
+        if len(cur_pts) == 0:
+            return None, None, -1
+        seen = np.zeros(mp.pt_xyz.shape[0], bool)
+        seen[cur_pts] = True
+        votes = (seen[np.clip(mp.kf_pt, 0, None)] & (mp.kf_pt >= 0)).sum(axis=1)
+        votes[~mp.kf_valid] = 0
+        k1 = np.flatnonzero(votes > 0)
+        if len(k1) == 0:
+            return None, None, -1
+        best_kf = int(k1[np.argmax(votes[k1])])
+        local_kfs = list(k1[np.argsort(-votes[k1])][:60])
+        for k in local_kfs[:10]:
+            for kn in mp.covisible_kfs(k, 10):
+                if kn not in local_kfs:
+                    local_kfs.append(int(kn))
+            if len(local_kfs) >= 80:  # cap (src/Tracking.cpp:1730)
+                break
+        local_kfs = local_kfs[:80]
+        # points ordered by keyframe covisibility rank: when the slice
+        # exceeds the device cap, the strongest keyframes' points survive
+        rows = mp.kf_pt[local_kfs].ravel()
+        first = np.unique(rows, return_index=True)[1]
+        lp = rows[np.sort(first)]
+        lp = lp[(lp >= 0) & mp.pt_valid[np.clip(lp, 0, None)]]
+        cap = self.cfg.local_points_cap
+        if len(lp) > cap:
+            from .utils.metrics import log_event
+            log_event("local_points_truncated", total=int(len(lp)), cap=cap)
+            lp = lp[:cap]
+        pad = cap - len(lp)
+        lp_pad = np.concatenate([lp, np.zeros(pad, lp.dtype)]).astype(np.int32)
+        pvalid = np.concatenate([np.ones(len(lp), bool), np.zeros(pad, bool)])
+        return lp_pad, pvalid, best_kf
+
+    def _track_local_map(self, frame: Frame) -> bool:
+        """TrackLocalMap (src/Tracking.cpp:1247-1306) + SearchLocalPoints,
+        staged."""
+        mp = self.map
+        cur_pts = frame.pt_idx[frame.pt_idx >= 0]
+        lp_pad, pvalid, best_kf = self._select_local_points(frame.pt_idx)
+        if lp_pad is None:
+            return False
+        self.ref_kf = best_kf
+        already = pvalid & np.isin(lp_pad, cur_pts)
+
+        cam = self.cfg.camera
+        th = 3.0 if self.n_lost_frames > 0 else 1.0
+        res, in_frustum = FM.match_local_points(
+            self._dev(frame.pose), self._dev(mp.pt_xyz[lp_pad]),
+            self._dev(pvalid), self._dev(mp.pt_desc[lp_pad]),
+            self._dev(mp.pt_normal[lp_pad]), self._dev(mp.pt_min_dist[lp_pad]),
+            self._dev(mp.pt_max_dist[lp_pad]), self._dev(already),
+            self._dev(frame.xy), self._dev(frame.octave),
+            self._dev(frame.desc), self._dev(frame.valid),
+            self._dev(frame.ur), self._sf_dev,
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+            cam.width, cam.height, self.cfg.orb.n_levels,
+            float(np.log(self.cfg.orb.scale_factor)), float(th))
+        midx = res.idx.cpu().numpy()
+        frus = in_frustum.cpu().numpy()
+        # IncreaseVisible for frustum points + currently matched
+        mp.pt_visible[lp_pad[frus & pvalid]] += 1
+        mp.pt_visible[cur_pts] += 1
+        # bind new associations (only unmatched keypoints get them)
+        src = np.flatnonzero(midx >= 0)
+        free = frame.pt_idx[midx[src]] < 0
+        frame.pt_idx[midx[src[free]]] = lp_pad[src[free]]
+
+        # refine the NEW associations (earlier-stage ones are already done)
+        self._refine_against_points(frame, frame.pt_idx >= 0)
+        n_inl = self._pose_optimize(frame)
+        matched = frame.pt_idx[frame.pt_idx >= 0]
+        mp.pt_found[matched] += 1
+        self.matches_inliers = n_inl
+        # stricter right after a loss (src/Tracking.cpp:1294-1300)
+        need = 50 if self.n_lost_frames > 0 else 30
+        return n_inl >= need
+
+    # -------------------------------------------------------------- keyframes
+    def _need_new_keyframe(self, frame: Frame) -> bool:
+        """NeedNewKeyFrame (src/Tracking.cpp:1308-1434) with the mapper off
+        (always idle):
+
+        - ratioMap (RGB-D): tracked-in-map close points / all close-depth
+          candidates (:1352-1372)
+        - thRefRatio 0.75, 0.4 when nKFs<2, 0.9 monocular (:1378-1383)
+        - thMapRatio 0.35, 0.20 when inliers>300 (:1386-1388)
+        - c1a: >= mMaxFrames since the last keyframe
+        - c1b: >= mMinFrames (the mapper is idle)
+        - c1c: non-mono and (inliers < 0.25*ref or ratioMap < 0.3)
+        - c2: (inliers < thRefRatio*ref or ratioMap < thMapRatio) and
+          inliers > 15
+        - insert iff (c1a|c1b|c1c) & c2."""
+        if self.ref_kf < 0:
+            return False
+        mp = self.map
+        n_kfs = mp.n_keyframes
+        min_obs = 3 if n_kfs > 2 else 2
+        obs_counts = mp.point_obs_count()
+        ref_pts = mp.kf_pt[self.ref_kf]
+        ref_matches = int(((ref_pts >= 0) &
+                           (obs_counts[np.clip(ref_pts, 0, None)] >= min_obs)).sum())
+        ratio_map = 1.0
+        if self.cfg.sensor != Sensor.MONOCULAR:
+            close = (frame.depth > 0) & \
+                (frame.depth < self.cfg.close_depth_threshold) & frame.valid
+            pt = frame.pt_idx
+            in_map = (pt >= 0) & (obs_counts[np.clip(pt, 0, None)] > 0)
+            ratio_map = int((close & in_map).sum()) / max(1, int(close.sum()))
+        th_ref = 0.75
+        if n_kfs < 2:
+            th_ref = 0.4
+        if self.cfg.sensor == Sensor.MONOCULAR:
+            th_ref = 0.9
+        th_map = 0.20 if self.matches_inliers > 300 else 0.35
+        frames_since = frame.frame_id - self.last_kf_frame_id
+        c1a = frames_since >= self.cfg.max_frames_between_kf
+        c1b = frames_since >= self.cfg.min_frames_between_kf
+        c1c = self.cfg.sensor != Sensor.MONOCULAR and \
+            (self.matches_inliers < 0.25 * ref_matches or ratio_map < 0.3)
+        c2 = (self.matches_inliers < th_ref * ref_matches
+              or ratio_map < th_map) and self.matches_inliers > 15
+        return bool((c1a or c1b or c1c) and c2)
+
+    def _create_keyframe(self, frame: Frame):
+        """CreateNewKeyFrame (src/Tracking.cpp:1436-1534): the pose is first
+        re-optimized against the live map (prunes associations that became
+        outliers), then close-depth points are spawned for unmatched
+        features (:1459-1519)."""
+        mp = self.map
+        _ensure_patch(frame)
+        if frame.pose is not None and (frame.pt_idx >= 0).sum() >= 10:
+            self._pose_optimize(frame)
+        k = mp.add_keyframe(frame.pose, frame.timestamp, frame.frame_id,
+                            frame.xy, frame.octave, frame.angle, frame.desc,
+                            frame.valid, frame.pt_idx,
+                            depth=frame.depth, ur=frame.ur, patch=frame.patch,
+                            xy0=frame.xy0, ur0=frame.ur0)
+        if self.cfg.sensor != Sensor.MONOCULAR:
+            self._spawn_depth_points(frame, k)
+        self.ref_kf = k
+        self.last_kf_frame_id = frame.frame_id
+
+    def _spawn_depth_points(self, frame: Frame, k: int):
+        has_depth = (frame.depth > 0) & frame.valid & (frame.pt_idx < 0)
+        close = has_depth & (frame.depth < self.cfg.close_depth_threshold)
+        # the reference sorts candidates by depth and inserts every close one
+        # PLUS the 100 nearest even beyond ThDepth (src/Tracking.cpp:1477-1487)
+        cand = np.flatnonzero(has_depth)
+        order = cand[np.argsort(frame.depth[cand])]
+        ids = order[close[order] | (np.arange(len(order)) < 100)]
+        if len(ids) == 0:
+            return
+        cam = self.cfg.camera
+        mp = self.map
+        Twc_R = mp.kf_pose[k, :, :3].T
+        Ow = -Twc_R @ mp.kf_pose[k, :, 3]
+        z = frame.depth[ids]
+        x = (frame.xy[ids, 0] - cam.cx) / cam.fx * z
+        y = (frame.xy[ids, 1] - cam.cy) / cam.fy * z
+        Xw = np.stack([x, y, z], -1) @ Twc_R.T + Ow
+        pt_ids = mp.add_points(Xw.astype(np.float32), frame.desc[ids],
+                               ref_kf=k, first_kf=k,
+                               patch=(RF.template_of(frame.patch[ids])
+                                      if frame.patch is not None else None))
+        mp.kf_pt[k, ids] = pt_ids
+        frame.pt_idx[ids] = pt_ids
+        mp.refresh_point_stats(pt_ids)
+
+    # ----------------------------------------------------------- block driver
+    def run_blocked(self, frames, to_gray, block: int = 6,
+                    pipeline_depth: int = 2):
+        raise NotImplementedError(
+            "the block driver (K frames per device call, tracking.py "
+            "run_blocked / engine_step.track_frames_block) is the next step "
+            "of the port (ROADMAP.md queue 1)")
+
+    # ------------------------------------------------------------- trajectory
+    def trajectory(self):
+        """Recover the full frame trajectory by chaining relative poses
+        through the reference keyframes (System::SaveTrajectoryTUM,
+        src/System.cpp:307-370)."""
+        out_ts, out_T = [], []
+        for ts, ref, T_rel, lost in self.frame_log:
+            if ref < 0 or lost:  # lost frames carry no reliable pose
+                continue
+            T_ref = self.map.resolve_kf_pose(ref)
+            if T_ref is None:
+                continue
+            T = se3_np.compose(T_rel, T_ref)
+            if not np.isfinite(T).all():
+                continue
+            out_ts.append(ts)
+            out_T.append(T)
+        return np.array(out_ts), (np.stack(out_T) if out_T else
+                                  np.zeros((0, 3, 4), np.float32))

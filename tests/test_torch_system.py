@@ -1,0 +1,183 @@
+"""The port's package boundary and host pieces: it imports without JAX, keeps
+TF32 off, raises NotImplementedError (naming the ROADMAP item) for what is
+not ported yet, and its host code (settings, interop, native map ops, the
+device mirror of the point table) agrees with the JAX package."""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import orbslam2_tpu_torch as P
+from orbslam2_tpu import config as JC
+from orbslam2_tpu_torch import interop, native
+from orbslam2_tpu_torch.map.mapstate import MapState
+from orbslam2_tpu_torch.tracking import Tracker
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "orbslam2_tpu_torch"
+
+
+def test_import_leaves_jax_out():
+    modules = sorted("orbslam2_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+                     for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys, importlib\n"
+            "import orbslam2_tpu_torch\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "       or m == 'orbslam2_tpu' or m.startswith('orbslam2_tpu.')]\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_full_f32_matmuls():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _rgbd_cfg():
+    return P.with_camera(P.SlamConfig(sensor=P.Sensor.RGBD, max_points=256,
+                                      max_keyframes=4), bf=250.0)
+
+
+@pytest.mark.parametrize("call", [
+    lambda s: s.track_monocular(np.zeros((480, 640), np.uint8), 0.0),
+    lambda s: s.track_stereo(np.zeros((480, 640), np.uint8),
+                             np.zeros((480, 640), np.uint8), 0.0),
+    lambda s: s.run_sequence(iter([])),
+    lambda s: s.activate_localization_mode(),
+    lambda s: s.save_map("never_written.npz"),
+    lambda s: s.load_map("never_read.npz"),
+    lambda s: s.tracker.run_blocked(iter([]), s._gray),
+])
+def test_not_ported_yet_raises_naming_the_roadmap(call):
+    s = P.System(_rgbd_cfg(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(s)
+
+
+def test_mapper_and_relocalizer_are_refused():
+    cfg = _rgbd_cfg()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Tracker(cfg, MapState(cfg, 1024), object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Tracker(cfg, MapState(cfg, 1024), None, relocalizer=object(), device="cpu")
+
+
+def test_track_rgbd_needs_an_rgbd_system():
+    s = P.System(P.SlamConfig(max_points=256, max_keyframes=4), device="cpu")
+    with pytest.raises(ValueError):
+        s.track_rgbd(np.zeros((480, 640), np.uint8), np.ones((480, 640), np.float32), 0.0)
+
+
+def test_load_settings_parity(tmp_path):
+    yaml = tmp_path / "cam.yaml"
+    yaml.write_text(
+        "%YAML:1.0\n"
+        "Camera.fx: 535.4\nCamera.fy: 539.2\nCamera.cx: 320.1\nCamera.cy: 247.6\n"
+        "Camera.k1: 0.1\nCamera.k2: -0.2\nCamera.p1: 0.0\nCamera.p2: 0.0\n"
+        "Camera.width: 640\nCamera.height: 480\nCamera.fps: 30.0\nCamera.bf: 40.0\n"
+        "Camera.RGB: 1\nThDepth: 40.0\nDepthMapFactor: 5000.0\n"
+        "ORBextractor.nFeatures: 1000\nORBextractor.scaleFactor: 1.2\n"
+        "ORBextractor.nLevels: 8\nORBextractor.iniThFAST: 20\n"
+        "ORBextractor.minThFAST: 7\n")
+    for sensor in (0, 2):
+        j = JC.load_settings(yaml, JC.Sensor(sensor))
+        t = P.load_settings(yaml, P.Sensor(sensor))
+        assert dataclasses.asdict(t.camera) == dataclasses.asdict(j.camera)
+        assert dataclasses.asdict(t.orb) == dataclasses.asdict(j.orb)
+        assert (t.th_depth, t.depth_map_factor, t.fps, t.rgb_order) == \
+            (j.th_depth, j.depth_map_factor, j.fps, j.rgb_order)
+        assert t.close_depth_threshold == j.close_depth_threshold
+
+
+def test_descriptor_interop_round_trip():
+    u = np.random.default_rng(0).integers(0, 2 ** 32, (5, 8), dtype=np.uint32)
+    i = interop.desc_u32_to_i32(u)
+    assert i.dtype == np.int32
+    np.testing.assert_array_equal(interop.desc_i32_to_u32(i), u)
+    assert (i < 0).any()  # high bits land in the sign
+
+
+def test_native_map_ops_match_numpy_fallback():
+    assert native.available()  # g++ builds mapops.cpp into build/
+    rng = np.random.default_rng(1)
+    cfg = P.SlamConfig(max_points=512, max_keyframes=8)
+    mp = MapState(cfg, 64)
+    mp.kf_valid[:6] = True
+    mp.kf_pt[:6] = np.where(rng.random((6, 64)) < 0.6, rng.integers(0, 200, (6, 64)), -1)
+    mp.pt_valid[:200] = True
+    w_native = mp.covisibility_weights(2)
+    seen = np.zeros(512, bool)
+    seen[mp.kf_pt[2][mp.kf_pt[2] >= 0]] = True
+    w_np = (seen[np.clip(mp.kf_pt, 0, None)] & (mp.kf_pt >= 0)).sum(1)
+    w_np[2] = 0
+    w_np[~mp.kf_valid] = 0
+    np.testing.assert_array_equal(w_native, w_np)
+    descs = rng.integers(-2 ** 31, 2 ** 31, (9, 8)).astype(np.int32)
+    med = native.medoid_descriptors(descs, np.array([0, 4, 9]))
+    for g, (a, b) in enumerate([(0, 4), (4, 9)]):
+        d = descs[a:b]
+        x = d[:, None, :] ^ d[None, :, :]
+        dist = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1).sum(-1)
+        assert med[g] == a + np.argmin(dist)
+
+
+def test_point_mirror_follows_the_map():
+    """Dirty rows are copied into the device mirror in place (index_copy_);
+    a grown table is uploaded whole."""
+    cfg = _rgbd_cfg()
+    mp = MapState(cfg, 1024)
+    tr = Tracker(cfg, mp, device="cpu")
+    ids = mp.add_points(np.ones((10, 3), np.float32),
+                        np.arange(80, dtype=np.int32).reshape(10, 8) - 40, 0, 0)
+    tr._refresh_mirror()
+    mirror0 = tr._mirror[0]
+    mp.pt_xyz[ids[3]] = (7.0, 8.0, 9.0)
+    mp.mark_points_dirty([ids[3]])
+    tr._refresh_mirror()
+    assert tr._mirror[0] is mirror0  # updated in place
+    np.testing.assert_array_equal(tr._mirror[0].numpy(), mp.pt_xyz)
+    np.testing.assert_array_equal(tr._mirror[1].numpy(), mp.pt_desc)
+    mp.add_points(np.zeros((300, 3), np.float32), np.zeros((300, 8), np.int32), 0, 0)
+    tr._refresh_mirror()  # capacity doubled: full upload
+    assert tr._mirror[0].shape[0] == mp.pt_xyz.shape[0] == 512
+    np.testing.assert_array_equal(tr._mirror[6].numpy(), mp.pt_valid)
+
+
+def test_bench_rgbd_config_matches_the_bench():
+    """The frame profiler's and chip_smoke.py's configuration is bench.py's
+    RGB-D row (bench.py:46-56), built here with the JAX package."""
+    from orbslam2_tpu.io import synth as JS
+    from orbslam2_tpu_torch.io import synth as TS
+    from orbslam2_tpu_torch.utils.profile_frame import bench_rgbd_config
+    scene = JS.make_room(seed=0)
+    j = JC.with_camera(
+        JC.SlamConfig(sensor=JC.Sensor.RGBD, th_depth=25.0),
+        fx=float(scene.K[0, 0]), fy=float(scene.K[1, 1]),
+        cx=float(scene.K[0, 2]), cy=float(scene.K[1, 2]),
+        k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
+        width=scene.width, height=scene.height)
+    j = dataclasses.replace(j, camera=dataclasses.replace(j.camera, bf=250.0))
+    t = bench_rgbd_config(TS.make_room(seed=0))
+    assert dataclasses.asdict(t.camera) == dataclasses.asdict(j.camera)
+    assert dataclasses.asdict(t.orb) == dataclasses.asdict(j.orb)
+    assert (t.sensor.value, t.th_depth, t.local_points_cap, t.max_points) == \
+        (j.sensor.value, j.th_depth, j.local_points_cap, j.max_points)
+
+
+def test_frame_profiler_needs_a_card():
+    from orbslam2_tpu_torch.utils import profile_frame
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal without a CUDA device")
+    with pytest.raises(SystemExit, match="CUDA"):
+        profile_frame.main([])
