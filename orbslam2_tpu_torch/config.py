@@ -55,6 +55,19 @@ class SlamConfig:
     max_points: int = 65536
     # fixed size of the local-map slice a frame is matched against
     local_points_cap: int = 4096
+    # local-BA window: the new keyframe and its covisible ones, at most this
+    # many (the fixed second ring comes on top)
+    local_ba_cam_cap: int = 48
+    # Local-BA gauge fixing. "window": fix the second ring plus the oldest
+    # window camera (and the global-oldest when it is in the window). "ref":
+    # the reference's rule, only the second ring and the map-origin keyframe
+    # (src/Optimizer.cpp:640-652), LM damping handling the rest.
+    local_ba_gauge: str = "window"
+    # shape buckets of a BA problem (local_mapping.build_ba_problem): a
+    # window pads up to the first bucket that holds it
+    ba_cam_buckets: tuple = (8, 16, 32, 64, 128, 256, 512)
+    ba_point_buckets: tuple = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
+    ba_edge_buckets: tuple = (4096, 8192, 16384, 32768, 65536, 131072, 262144)
     # Tracking constants (src/Tracking.cpp:167, :1417)
     min_frames_between_kf: int = 0
 

@@ -41,9 +41,14 @@ class Frame:
     # (Tracking::UpdateLastFrame). Never enter the map.
     tmp_xyz: np.ndarray = field(default=None)
     tmp_valid: np.ndarray = field(default=None)
+    # lazy frames (block driver): xy and the other per-feature arrays are
+    # None until tracking.Tracker._ensure_features fills them from the
+    # block's readback; n_feat carries the capacity until then
+    n_feat: int = 0
 
     def __post_init__(self):
-        n = self.xy.shape[0]
+        n = self.xy.shape[0] if self.xy is not None else self.n_feat
+        self.n_feat = n
         if self.pt_idx is None:
             self.pt_idx = np.full(n, -1, np.int32)
         if self.tmp_xyz is None:
@@ -52,7 +57,7 @@ class Frame:
 
     @property
     def capacity(self) -> int:
-        return self.xy.shape[0]
+        return self.n_feat
 
     @property
     def n_valid(self) -> int:

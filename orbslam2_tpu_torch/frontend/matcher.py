@@ -12,12 +12,17 @@ one Hamming matrix (the CUDA kernel, ops/cuda_kernels.py):
 - `match_descriptors_ratio` <- SearchByBoW (src/ORBmatcher.cpp:220-369)
   without the vocabulary gate, TH_LOW + ratio 0.7 + rotation histogram: the
   tracker's reference-keyframe fallback when no vocabulary is loaded.
+- `epipolar_match_core` <- ORBmatcher::SearchForTriangulation +
+  CheckDistEpipolarLine (src/ORBmatcher.cpp:785-994, :135-160): local
+  mapping's match between two keyframes' unmatched features.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import matching as M
+from ..utils.device import constant
 
 
 def _project(T, pts_xyz, fx, fy, cx, cy, bf):
@@ -92,10 +97,15 @@ def local_points_core(T, pts_xyz, pt_valid, pt_desc, pt_normal,
                       pt_min_dist, pt_max_dist, already_matched,
                       kp_xy, kp_octave, kp_desc, kp_valid, kp_ur,
                       scale_factors, fx, fy, cx, cy, bf, width, height,
-                      n_levels, log_scale, radius_th):
+                      n_levels, log_scale, radius_th, dedup: bool = True):
     """Local-map search: frustum filter, view-cos radius, predicted level,
     masked Hamming argmin, one claimant per keypoint. radius_th may be a
     tensor (the lost-state widening is data).
+
+    dedup=False returns every point's best keypoint without the
+    one-claimant-per-keypoint reduction: the fuse needs several points that
+    claim one keypoint to surface, so the host can merge them
+    (ORBmatcher::Fuse, src/ORBmatcher.cpp:1091-1113).
 
     Returns (MatchResult pt->kp, in_frustum mask)."""
     pc, uv, ur_pred = _project(T, pts_xyz, fx, fy, cx, cy, bf)
@@ -122,7 +132,9 @@ def local_points_core(T, pts_xyz, pt_valid, pt_desc, pt_normal,
         kp_xy, kp_octave, kp_desc, kp_valid, scale_factors,
         max_dist=M.TH_HIGH, ratio=0.8, level_window=(-1, 0),
         pt_ur=ur_pred, kp_ur=kp_ur)
-    return M.resolve_duplicate_targets(res, kp_xy.shape[0]), in_frustum
+    if dedup:
+        res = M.resolve_duplicate_targets(res, kp_xy.shape[0])
+    return res, in_frustum
 
 
 def match_local_points(T, pts_xyz, pt_valid, pt_desc, pt_normal,
@@ -150,3 +162,41 @@ def match_descriptors_ratio(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b):
     res = M.masked_best_match(dist, cand, M.TH_LOW, 0.7)
     ok = M.rotation_consistency(angle_a, angle_b, res.idx, res.valid)
     return M.resolve_duplicate_targets(M._select(ok, res), desc_b.shape[0])
+
+
+def epipolar_match_core(T1, T2, kp1_xy, kp1_oct, desc1, free1,
+                        kp2_xy, kp2_oct, desc2, free2, sigma2_levels,
+                        fx, fy, cx, cy):
+    """Match keyframe 1's free features to keyframe 2's across the epipolar
+    gate: distance to the epipolar line below 3.84 sigma^2 of the octave of
+    kp2 (src/ORBmatcher.cpp:158), TH_LOW and ratio 0.75, one claimant per
+    keypoint. T1/T2: [3,4] Tcw. Returns kp1 -> kp2 MatchResult."""
+    R1, t1 = T1[:, :3], T1[:, 3]
+    R2, t2 = T2[:, :3], T2[:, 3]
+    # relative pose cam1<-cam2: R12 = R1 R2^T, t12 = -R12 t2 + t1
+    R12 = R1 @ R2.T
+    t12 = t1 - R12 @ t2
+    # fundamental F12 with x1^T F12 x2 = 0 (LocalMapping::ComputeF12,
+    # src/LocalMapping.cpp:723-744)
+    zero = torch.zeros_like(t12[0])
+    tx = torch.stack([torch.stack([zero, -t12[2], t12[1]]),
+                      torch.stack([t12[2], zero, -t12[0]]),
+                      torch.stack([-t12[1], t12[0], zero])])
+    Kinv = constant(("Kinv", fx, fy, cx, cy), lambda: np.linalg.inv(np.array(
+        [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], np.float32)), T1.device)
+    F12 = Kinv.T @ tx @ R12 @ Kinv
+
+    p1 = torch.cat([kp1_xy, torch.ones_like(kp1_xy[:, :1])], -1)
+    p2 = torch.cat([kp2_xy, torch.ones_like(kp2_xy[:, :1])], -1)
+    # epipolar line in image 2 for each kp1: l2 = F12^T x1
+    l2 = p1 @ F12  # [N1, 3]
+    num = (l2 @ p2.T).abs()  # [N1, N2]
+    den = torch.sqrt(l2[:, 0] ** 2 + l2[:, 1] ** 2)[:, None]
+    dsqr = (num / torch.clamp(den, min=1e-9)) ** 2
+    sig2 = sigma2_levels[kp2_oct.clamp(0, sigma2_levels.shape[0] - 1).long()]
+    epi_ok = dsqr < 3.84 * sig2[None, :]
+
+    dist = M.hamming_matrix(desc1, desc2)
+    cand = epi_ok & free1[:, None] & free2[None, :]
+    res = M.masked_best_match(dist, cand, M.TH_LOW, 0.75)
+    return M.resolve_duplicate_targets(res, kp2_xy.shape[0])

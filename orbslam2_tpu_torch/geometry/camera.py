@@ -32,6 +32,10 @@ class Intrinsics:
     height: int = 480
 
     @property
+    def baseline(self) -> float:
+        return self.bf / self.fx if self.fx else 0.0
+
+    @property
     def has_distortion(self) -> bool:
         return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 

@@ -8,7 +8,10 @@ with nvcc into `build/` on first use (_build.py) and bound with ctypes.
 `hamming_matrix` is the wrapper every matcher calls. On a CUDA tensor it
 launches the kernel (or raises); on a CPU tensor it runs the plain version
 `hamming_matrix_ref`, which is also what tests and chip_smoke.py compare the
-kernel with. `hamming_matrix.launches` counts kernel launches.
+kernel with. `hamming_matrix.launches` counts kernel launches, and
+`hamming_matrix.launches_by` splits them by caller: the launches a thread
+makes inside `launches_counted_as(name)` count under `name`, the others
+under "tracker".
 
 Descriptors are [N, 8] int32 tensors holding the bit patterns of the 8
 uint32 words (PyTorch has no popcount and no uint32 shifts on the CPU); the
@@ -16,11 +19,15 @@ kernel reinterprets them as uint32.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
+import numpy as np
 import torch
 
 from .._build import PKG_DIR, build_library
+from ..utils.device import constant
 
 DESC_WORDS = 8
 # element budget of the plain version's [rows, B, 32] byte intermediate:
@@ -28,10 +35,14 @@ DESC_WORDS = 8
 _REF_CHUNK_ELEMS = 1 << 23
 _HAMMING_SRC = PKG_DIR / "csrc" / "hamming.cu"
 _lib = None
+_count_lock = threading.Lock()
+_caller = threading.local()
 
-# popcount of every byte value, indexed by the descriptors' uint8 view
-_POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)],
-                          dtype=torch.int32)
+
+def _popcount8() -> np.ndarray:
+    """Popcount of every byte value, indexed by the descriptors' uint8 view
+    (a device constant: a fresh upload per call would wait for its copy)."""
+    return np.array([bin(i).count("1") for i in range(256)], np.int32)
 
 
 def _load_lib():
@@ -68,7 +79,7 @@ def hamming_matrix_ref(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tens
     _REF_CHUNK_ELEMS elements ([4096, 1024] would otherwise need 1 GB)."""
     A, B = desc_a.shape[0], desc_b.shape[0]
     out = torch.empty((A, B), dtype=torch.int32, device=desc_a.device)
-    table = _POPCOUNT8.to(desc_a.device)
+    table = constant("popcount8", _popcount8, desc_a.device)
     rows = max(1, _REF_CHUNK_ELEMS // max(1, B * 4 * DESC_WORDS))
     for s in range(0, A, rows):
         x = torch.bitwise_xor(desc_a[s:s + rows, None, :], desc_b[None, :, :])
@@ -99,8 +110,28 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
                                         out.data_ptr(), A, B, stream)
     if err != 0:
         raise RuntimeError(f"hamming kernel launch failed: CUDA error {err}")
-    hamming_matrix.launches += 1
+    with _count_lock:
+        hamming_matrix.launches += 1
+        who = getattr(_caller, "name", "tracker")
+        hamming_matrix.launches_by[who] = hamming_matrix.launches_by.get(who, 0) + 1
     return out
 
 
-hamming_matrix.launches = 0
+def reset_launch_counts() -> None:
+    with _count_lock:
+        hamming_matrix.launches = 0
+        hamming_matrix.launches_by = {}
+
+
+@contextlib.contextmanager
+def launches_counted_as(name: str):
+    """Count this thread's kernel launches under `name` inside the block."""
+    prev = getattr(_caller, "name", "tracker")
+    _caller.name = name
+    try:
+        yield
+    finally:
+        _caller.name = prev
+
+
+reset_launch_counts()

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as Fnn
 
 from ..config import OrbParams
+from ..utils.device import constant
 
 HALF_PATCH = 15
 PATCH = 31
@@ -239,8 +240,8 @@ def extract_orb(img: torch.Tensor, params: OrbParams, height: int,
             continue
         if lv > 0:
             hi, wi = level_img.shape
-            wy = torch.from_numpy(_resize_weights(hi, h)).to(dev)
-            wx = torch.from_numpy(_resize_weights(wi, w)).to(dev)
+            wy = constant(("resize", hi, h), lambda: _resize_weights(hi, h), dev)
+            wx = constant(("resize", wi, w), lambda: _resize_weights(wi, w), dev)
             level_img = wy @ level_img @ wx.T
         levels.append(Fnn.pad(level_img[None, None], (0, W0 - w, 0, H0 - h),
                               mode="replicate")[0, 0])
@@ -343,10 +344,8 @@ def extract_orb(img: torch.Tensor, params: OrbParams, height: int,
 
     # ---- orientation: circular moments of the 31x31 atlas patch. The window
     # start is clamped into the image, as jax.lax.dynamic_slice does ----
-    mask_np, gxm_np, gym_np = _ic_angle_masks()
-    mask = torch.from_numpy(mask_np).to(dev)
-    gxm = torch.from_numpy(gxm_np).to(dev)
-    gym = torch.from_numpy(gym_np).to(dev)
+    mask, gxm, gym = (constant(("ic_angle", i), lambda i=i: _ic_angle_masks()[i], dev)
+                      for i in range(3))
     ar = torch.arange(PATCH, device=dev)
     y0p = torch.clamp(ys - HALF_PATCH, 0, H0 - PATCH)
     x0p = torch.clamp(xs - HALF_PATCH, 0, W0 - PATCH)
@@ -356,7 +355,7 @@ def extract_orb(img: torch.Tensor, params: OrbParams, height: int,
     ang = torch.atan2(torch.sum(pm * gym, dim=(1, 2)), torch.sum(pm * gxm, dim=(1, 2)))
 
     # ---- descriptors: rotated BRIEF gathers on the blurred atlas ----
-    pat = torch.from_numpy(brief_pattern()).to(dev)
+    pat = constant("brief", brief_pattern, dev)
     ca, sa = torch.cos(ang), torch.sin(ang)
 
     def rotxy(px, py):
@@ -399,7 +398,8 @@ def extract_orb(img: torch.Tensor, params: OrbParams, height: int,
              + (samp(y0 + 1, x0) * (1 - fx_) + samp(y0 + 1, x0 + 1) * fx_) * fy_)
 
     # ---- scale coords to level 0, pad to capacity ----
-    sf = torch.from_numpy(scale_factors(params)).to(dev)[lvl]
+    sf = constant(("scale_factors", params.scale_factor, params.n_levels),
+                  lambda: scale_factors(params), dev)[lvl]
     xy = torch.stack([px * sf, py * sf], -1)
     pad = padded_capacity(params.n_features) - xy.shape[0]
 

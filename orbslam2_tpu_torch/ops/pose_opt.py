@@ -50,7 +50,7 @@ def _normal_system(T, pts, obs, is_stereo, info, active, fx, fy, cx, cy, bf, rob
 
 def _lm_rounds(T, pts, obs, is_stereo, info, active, fx, fy, cx, cy, bf,
                robust: bool, n_iters: int):
-    lam = torch.tensor(1e-3, dtype=torch.float32, device=T.device)
+    lam = torch.full((), 1e-3, dtype=torch.float32, device=T.device)
     eye6 = torch.eye(6, dtype=torch.float32, device=T.device)
     for _ in range(n_iters):
         H, g, cost = _normal_system(

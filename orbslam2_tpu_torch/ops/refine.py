@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fnn
 
+from ..utils.device import constant
 from .features import PATCH_WIN, TEMPLATE_WIN
 
 _R_WIN = PATCH_WIN // 2      # 7
@@ -68,7 +69,7 @@ def refine_offsets(patches: torch.Tensor, templates: torch.Tensor,
     M = patches.shape[0]
     patches = patches.to(torch.float32)
     templates = templates.to(torch.float32)
-    w = torch.from_numpy(_gauss_weight()).to(dev)  # [11, 11]
+    w = constant("lk_gauss", _gauss_weight, dev)  # [11, 11]
 
     # bias-corrected template and its gradients (inverse-compositional: the
     # Jacobian and Hessian come from the template and do not change)

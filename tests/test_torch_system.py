@@ -1,7 +1,8 @@
 """The port's package boundary and host pieces: it imports without JAX, keeps
 TF32 off, raises NotImplementedError (naming the ROADMAP item) for what is
-not ported yet, and its host code (settings, interop, native map ops, the
-device mirror of the point table) agrees with the JAX package."""
+not ported yet, runs what is (an empty sequence, a tracker with a mapper),
+and its host code (settings, interop, native map ops, the device mirror of
+the point table, host-to-device uploads) agrees with the JAX package."""
 import dataclasses
 import subprocess
 import sys
@@ -53,11 +54,13 @@ def _rgbd_cfg():
     lambda s: s.track_monocular(np.zeros((480, 640), np.uint8), 0.0),
     lambda s: s.track_stereo(np.zeros((480, 640), np.uint8),
                              np.zeros((480, 640), np.uint8), 0.0),
-    lambda s: s.run_sequence(iter([])),
     lambda s: s.activate_localization_mode(),
     lambda s: s.save_map("never_written.npz"),
     lambda s: s.load_map("never_read.npz"),
-    lambda s: s.tracker.run_blocked(iter([]), s._gray),
+    lambda s: s.run_sequence(iter([(0.0, {"image": np.zeros((480, 640), np.uint8)})])),
+    lambda s: s.run_sequence(iter([(0.0, {"image": np.zeros((480, 640), np.uint8),
+                                         "right": np.zeros((480, 640), np.uint8)})]),
+                             pipelined=False),
 ])
 def test_not_ported_yet_raises_naming_the_roadmap(call):
     s = P.System(_rgbd_cfg(), device="cpu")
@@ -65,10 +68,41 @@ def test_not_ported_yet_raises_naming_the_roadmap(call):
         call(s)
 
 
-def test_mapper_and_relocalizer_are_refused():
+@pytest.mark.parametrize("call", [
+    lambda s: s.run_sequence(iter([])),
+    lambda s: s.run_sequence(iter([]), pipelined=False),
+    lambda s: sum(1 for _ in s.tracker.run_blocked(iter([]), s._gray)),
+])
+def test_empty_sequence_tracks_nothing(call):
+    s = P.System(_rgbd_cfg(), device="cpu", async_mapping=True)
+    assert call(s) == 0
+    s.shutdown()
+
+
+def test_a_failed_mapping_worker_surfaces_at_shutdown():
+    s = P.System(_rgbd_cfg(), device="cpu", async_mapping=True)
+
+    def fail(kf):
+        raise ValueError(f"keyframe {kf}")
+
+    s.local_mapper.process = fail
+    for kf in range(5):  # more keyframes than the queue holds
+        s._proxy.process(kf)
+    with pytest.raises(RuntimeError, match="mapping worker") as err:
+        s.shutdown()
+    assert isinstance(err.value.__cause__, ValueError)
+
+
+def test_tracker_takes_a_mapper():
+    from orbslam2_tpu_torch.local_mapping import LocalMapper
     cfg = _rgbd_cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Tracker(cfg, MapState(cfg, 1024), object(), device="cpu")
+    mp = MapState(cfg, 1024)
+    lm = LocalMapper(cfg, mp, device="cpu")
+    assert Tracker(cfg, mp, lm, device="cpu").local_mapper is lm
+
+
+def test_relocalizer_is_refused():
+    cfg = _rgbd_cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Tracker(cfg, MapState(cfg, 1024), None, relocalizer=object(), device="cpu")
 
@@ -181,3 +215,16 @@ def test_frame_profiler_needs_a_card():
         pytest.skip("checks the refusal without a CUDA device")
     with pytest.raises(SystemExit, match="CUDA"):
         profile_frame.main([])
+
+
+def test_upload_never_aliases_the_host_array():
+    """On the CPU an upload is a copy: the mapping thread may write the
+    host map while a device program still reads its input."""
+    from orbslam2_tpu_torch.utils.device import constant, upload
+    a = np.arange(6, dtype=np.float32)
+    t = upload(a, torch.device("cpu"))
+    a[0] = 7.0
+    assert t[0].item() == 0.0
+    c1 = constant("probe", lambda: np.ones(3, np.float32), torch.device("cpu"))
+    c2 = constant("probe", lambda: np.zeros(3, np.float32), torch.device("cpu"))
+    assert c1 is c2  # built once per key and device

@@ -1,13 +1,15 @@
 """Shared driver of the whole-slice parity tests (test_torch_slice*.py): the
 same rendered RGB-D room sequence through the JAX package's tracker
 (Tracker(cfg, MapState, None, relocalizer=None), mapper off) and through the
-port's System on the CPU.
+port's System on the CPU with its mapper off in the same way; and the JAX
+tracker's sweep map that the mapping tests start from.
 
 Size: 320x240 with the focal length and baseline scaled from the bench's
 640x480 (fx = 250, bf = 125: the same 0.5 m baseline and 12.5 m close-depth
 threshold), 500 features over 8 levels. At this size the JAX tracker tracks
 every frame of both sequences used here.
 """
+import functools
 import time
 
 import numpy as np
@@ -70,9 +72,22 @@ def run_both(gt):
 
     t0 = time.perf_counter()
     slam = System(cfg_t, device="cpu")
+    slam.tracker.local_mapper = None  # mapper off, as the JAX tracker above
     tracked = slam.run_sequence(
         ((i / 30.0, {"image": img, "depth": d}) for i, (img, d) in enumerate(frames)),
         pipelined=False)
     tres = _result(tracked, slam.tracker, gt, time.perf_counter() - t0)
     tres["system"] = slam
     return jres, tres
+
+
+@functools.lru_cache(maxsize=1)
+def jax_sweep_map():
+    """The JAX tracker's map (mapper off) after the 30-frame 0.15 m sweep:
+    7 keyframes of depth-spawned points, the input of the mapping tests."""
+    cfg_j, _ = configs()
+    frames = render(synth.sweep_trajectory(30, step=0.15))
+    jt = JTracker(cfg_j, JMap(cfg_j, padded_capacity(NF)), None, relocalizer=None)
+    for i, (img, d) in enumerate(frames):
+        assert jt.process_image(img, i / 30.0, depth_map=d) is not None
+    return jt.map
