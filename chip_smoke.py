@@ -5,13 +5,23 @@
 Phases, each printed on its own line:
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
    exits non-zero without a CUDA device (there is no CPU path);
-2. builds the CUDA kernels from csrc/ (nvcc, into build/) and the host map
-   library (g++), and prints the build time;
-3. checks each kernel against its plain PyTorch version on the card, at the
-   shapes the tracker gives it (exact equality for the Hamming matrix), and
-   times both with CUDA events: per call over back-to-back calls (launch
-   cost included), and on the device over calls queued behind a spin
-   kernel (launch gaps hidden);
+2. builds the CUDA kernels from csrc/ (one nvcc per source, started
+   together, into build/), the probe library (the empty kernel and the
+   tensor-core rate loop) and the host map library (g++), and prints the
+   build time;
+3. checks each kernel against its plain PyTorch version on the card, exactly:
+   `hamming_matrix` at [4096,1024], [1024,1024] and [1000,777];
+   `hamming_best2` (index, best and second) at the same shapes under three
+   kinds of mask (1% true, all true, and rows with no candidate, one
+   candidate and tied best columns). Times both with CUDA events: per call
+   over back-to-back calls (launch cost included), and on the device over
+   calls queued behind a spin kernel (launch gaps hidden), warm (the same
+   buffers every call, in L2) and cold (more distinct buffers than L2
+   holds); beside them an empty kernel of the same grid, the bound (bytes
+   over 3.35 TB/s against this run's tensor-core instructions over the
+   rate measured in this run), and for `hamming_matrix` the yardstick
+   `library_ms`: one torch.matmul of the descriptors unpacked to +-1 fp16
+   (unpacked outside the timed region; the package never calls it);
    3b. the Schur BA solver (ops/ba.ba_solve) on seeded problems at the
    local-BA cell (C=16, P=2048, E=8192) and the global-BA cell (C=128,
    P=8192, E=65536), held to the same call on the CPU (final cost within
@@ -25,111 +35,144 @@ Phases, each printed on its own line:
    4b. drives the bench's path, System(cfg, device="cuda",
    async_mapping=True).run_sequence(frames, pipelined=True): the 48-frame
    orbit and the 120-frame sweep, with the same gates, at least one local
-   BA solve and mapper Hamming launches on the sweep; prints the mapper's
-   stage times and counters and the kernel launches split between tracker
-   and mapper;
+   BA solve and mapper launches of `hamming_best2` on the sweep; prints the
+   mapper's stage times and counters and both kernels' launches split
+   between tracker and mapper;
    4c. one block dispatch (Tracker._blk_dispatch: uploads, the 6-frame
    device call, the start of the readback) under
    torch.cuda.set_sync_debug_mode("error"): it must not wait for the card.
 
-The launch counts are set to 0 just before each path and read just after.
-Then it prints the kernel table as one JSON line, and as the last line
+The launch counts are set to 0 just before each path and read just after;
+both kernels must have been launched on the synchronous and on the pipelined
+path. Then it prints the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no "ok" line. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 N_WARM = 8  # frames excluded from the per-frame time statistics
-HAMMING_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777))
+HAMMING_SHAPES = ((4096, 1024), (1024, 1024), (1000, 777))
 BA_CELLS = (("local", 16, 2048, 8192), ("global", 128, 8192, 65536))
 ORBIT_FRAMES = 48
 SYNC_SWEEP_FRAMES = 60
 SWEEP_FRAMES = 120
+KERNELS = ("hamming_matrix", "hamming_best2")
+T = None      # orbslam2_tpu_torch.utils.cuda_timing, imported in main()
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+def _bound(n_bytes: int, n_mma: int, mma_per_s: float) -> dict:
+    """The least time the card could take: the bytes over the data-sheet
+    memory rate against the tensor-core instructions over the measured rate."""
+    by_bytes = 1e3 * n_bytes / T.HBM_BYTES_PER_S
+    by_ops = 1e3 * n_mma / mma_per_s
+    return dict(bound_ms=max(by_bytes, by_ops), bound_bytes_ms=by_bytes,
+                bound_ops_ms=by_ops,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def time_ms(fn, reps: int = 50) -> float:
-    """Mean time per call of fn() over reps back-to-back calls, from CUDA
-    events: what a caller pays, launch cost included."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _times(row: dict, tag: str) -> str:
+    return (f"{tag}: per call (CUDA events, back-to-back) kernel {row['ms']:.4f} "
+            f"ms, plain {row['plain_ms']:.4f} ms; device time (CUDA events, "
+            f"queued) warm {T.fmt_ms(row['dev'])}, cold {T.fmt_ms(row['cold'])}, "
+            f"plain {T.fmt_ms(row['plain_dev'])}, empty kernel of the grid "
+            f"{T.fmt_ms(row['floor'])}; bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} (bytes {row['bound_bytes_ms']:.4f}, tensor-core "
+            f"issue {row['bound_ops_ms']:.4f})")
 
 
-def queued_ms(fn, reps: int = 10) -> float | None:
-    """Device time per call of fn() from CUDA events around reps calls
-    queued behind a spin kernel: the host has issued every call before the
-    device starts the first, so the events span the kernels run back to
-    back, without the host's launch gaps that time_ms includes. None when
-    the spin ended before the host had issued them all."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # about 0.1 s of spinning
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    queued = not start.query()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps if queued else None
-
-
-def fmt_ms(x: float | None) -> str:
-    return "not measured" if x is None else f"{x:.4f} ms"
-
-
-def check_hamming(CK) -> dict:
-    """Kernel vs plain version on the card: exact at every shape; the time
-    per call with its launch (time_ms) and on the device (queued_ms)."""
+def check_hamming_matrix(CK, PH, lib, mma_per_s: float) -> dict:
+    """`hamming_matrix` against its plain version on the card: exact at
+    every shape, then its times, floor, bound and the matmul yardstick."""
     rng = np.random.default_rng(0)
     rows = {}
     for A, B in HAMMING_SHAPES:
-        a = torch.from_numpy(rng.integers(0, 2 ** 32, (A, 8), dtype=np.uint32)
-                             .view(np.int32)).cuda()
-        b = torch.from_numpy(rng.integers(0, 2 ** 32, (B, 8), dtype=np.uint32)
-                             .view(np.int32)).cuda()
+        a = torch.from_numpy(PH.descriptors(rng, A)).cuda()
+        b = torch.from_numpy(PH.descriptors(rng, B)).cuda()
         got = CK.hamming_matrix(a, b)
         torch.cuda.synchronize()
         ref = CK.hamming_matrix_ref(a, b)
-        torch.cuda.synchronize()
         err = int((got - ref).abs().max().item())
         if err != 0:
-            raise AssertionError(f"hamming kernel disagrees at [{A},{B}]: "
+            raise AssertionError(f"hamming_matrix disagrees at [{A},{B}]: "
                                  f"max abs err {err}")
-        row = dict(err=err,
-                   ms=time_ms(lambda: CK.hamming_matrix(a, b)),
-                   plain_ms=time_ms(lambda: CK.hamming_matrix_ref(a, b)),
-                   dev=queued_ms(lambda: CK.hamming_matrix(a, b)),
-                   plain_dev=queued_ms(lambda: CK.hamming_matrix_ref(a, b)))
-        print(f"phase 3: hamming [{A},{B}] exact (max_abs_err 0): per call "
-              f"(CUDA events, back-to-back) kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms; device time (CUDA events, queued) "
-              f"kernel {fmt_ms(row['dev'])}, plain {fmt_ms(row['plain_dev'])}",
-              flush=True)
+        # the yardstick: +-1 fp16 bits, dot = 256 - 2 hamming (exact in fp16
+        # products, f32 accumulation); only the matmul is timed
+        shifts = torch.arange(32, device="cuda", dtype=torch.int32)
+        pm1 = [(1 - 2 * ((d[:, :, None] >> shifts) & 1)).reshape(d.shape[0], 256)
+               .to(torch.float16) for d in (a, b)]
+        pm1[1] = pm1[1].T.contiguous()
+        lib_err = int(((256 - (pm1[0] @ pm1[1]).to(torch.int32)) // 2 - ref)
+                      .abs().max().item())
+        if lib_err != 0:
+            raise AssertionError(f"matmul yardstick disagrees at [{A},{B}]")
+        keep = []
+        n_sets = T.cold_count(4 * A * B)
+        row = dict(err=err, shape=f"{A}x{B}",
+                   ms=T.time_ms(lambda: CK.hamming_matrix(a, b)),
+                   plain_ms=T.time_ms(lambda: CK.hamming_matrix_ref(a, b), reps=10),
+                   dev=T.queued_ms(lambda: CK.hamming_matrix(a, b), reps=20),
+                   cold=T.queued_ms(lambda: keep.append(CK.hamming_matrix(a, b)),
+                                    reps=n_sets),
+                   plain_dev=T.queued_ms(lambda: CK.hamming_matrix_ref(a, b), reps=3),
+                   floor=PH.empty_kernel_ms(lib, -(-A // 64), -(-B // 64), 128),
+                   library_ms=T.time_ms(lambda: pm1[0] @ pm1[1]),
+                   library_dev=T.queued_ms(lambda: pm1[0] @ pm1[1], reps=20),
+                   **_bound(4 * A * B + 32 * (A + B),
+                            2 * -(-A // 16) * -(-B // 8), mma_per_s))
+        del keep
+        print(_times(row, f"phase 3: hamming_matrix [{A},{B}] exact (max_abs_err 0)")
+              + f"; torch.matmul of +-1 fp16 bits per call {row['library_ms']:.4f} "
+              f"ms, device {T.fmt_ms(row['library_dev'])}", flush=True)
         rows[(A, B)] = row
+    return rows
+
+
+def check_hamming_best2(CK, PH, lib, mma_per_s: float) -> dict:
+    """`hamming_best2` against its plain version on the card: index, best
+    and second exact at every shape and mask kind, then its times (cold on
+    the sparse mask), floor and bound. The bound counts the mma of the
+    16x64 chunks whose mask is not empty: the others are skipped."""
+    rows = {}
+    for A, B in HAMMING_SHAPES:
+        for kind, a_np, b_np, cand_np in PH.best2_cases(A, B, seed=0):
+            a, b, cand = (torch.from_numpy(x).cuda() for x in (a_np, b_np, cand_np))
+            got = CK.hamming_best2(a, b, cand)
+            torch.cuda.synchronize()
+            ref = CK.hamming_best2_ref(a, b, cand)
+            err = max(int((x - y).abs().max().item()) for x, y in zip(got, ref))
+            if err != 0:
+                raise AssertionError(f"hamming_best2 disagrees at [{A},{B}], {kind} "
+                                     f"mask: max abs err {err} over idx, best, second")
+            padded = torch.nn.functional.pad(cand, (0, -B % 64, 0, -A % 16))
+            chunks = int(padded.view(-(-A // 16), 16, -(-B // 64), 64)
+                         .any(dim=3).any(dim=1).sum().item())
+            n_sets = T.cold_count(A * B)
+            masks = [cand.clone() for _ in range(n_sets)] if kind == "sparse" else None
+            row = dict(err=err, shape=f"{A}x{B}", density=float(cand_np.mean()),
+                       ms=T.time_ms(lambda: CK.hamming_best2(a, b, cand)),
+                       plain_ms=T.time_ms(lambda: CK.hamming_best2_ref(a, b, cand), reps=10),
+                       dev=T.queued_ms(lambda: CK.hamming_best2(a, b, cand), reps=20),
+                       cold=None if masks is None else T.queued_cold_ms(
+                           lambda i: CK.hamming_best2(a, b, masks[i]), n_sets),
+                       plain_dev=T.queued_ms(lambda: CK.hamming_best2_ref(a, b, cand), reps=3),
+                       floor=PH.empty_kernel_ms(lib, -(-A // 16), 1, 512),
+                       unfused_dev=T.queued_ms(lambda: CK.masked_best2(
+                           CK.hamming_matrix(a, b), cand), reps=20),
+                       **_bound(A * B + 32 * (A + B) + 12 * A, 16 * chunks, mma_per_s))
+            print(_times(row, f"phase 3: hamming_best2 [{A},{B}] {kind} mask "
+                              f"({100 * row['density']:.2f}% true) exact on idx, best, "
+                              "second (max_abs_err 0)")
+                  + f"; hamming_matrix + plain reduction, device warm "
+                  f"{T.fmt_ms(row['unfused_dev'])}", flush=True)
+            rows[(A, B, kind)] = row
     return rows
 
 
@@ -153,7 +196,7 @@ def check_ba(BA) -> None:
             raise AssertionError(f"ba_solve {name}: card cost {c_gpu}, CPU {c_cpu} "
                                  f"(rel {rel:.2e}), inliers agree {agree:.4f}")
         prob = BA.problem_from_numpy(arrays, torch.device("cuda"))
-        ms = time_ms(lambda: BA.ba_solve(prob, *intr), reps=5)
+        ms = T.time_ms(lambda: BA.ba_solve(prob, *intr), reps=5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             BA.ba_solve(prob, *intr)
             torch.cuda.synchronize()
@@ -177,8 +220,8 @@ def run_sequence(P, CK, synth, evaluation, name: str, gt: np.ndarray, scene,
                  cfg, pipelined: bool):
     """Track a rendered sequence on the card: synchronously through
     System.track_rgbd (mapper inline), or pipelined through
-    System(async_mapping=True).run_sequence. Counts the path's Hamming
-    launches from 0."""
+    System(async_mapping=True).run_sequence. Counts the path's launches of
+    both Hamming kernels from 0."""
     frames = render_frames(synth, scene, gt)
     slam = P.System(cfg, device="cuda", async_mapping=pipelined)
     CK.reset_launch_counts()
@@ -191,7 +234,8 @@ def run_sequence(P, CK, synth, evaluation, name: str, gt: np.ndarray, scene,
         tracked = sum(slam.track_rgbd(img, d, i / 30.0) is not None
                       for i, (img, d) in enumerate(frames))
     torch.cuda.synchronize()
-    launches = dict(CK.hamming_matrix.launches_by)
+    launches = {w.__name__: dict(w.launches_by)
+                for w in (CK.hamming_matrix, CK.hamming_best2)}
     ts, est = slam.tracker.trajectory()
     fids = np.round(np.asarray(ts) * 30).astype(int)
     ate = evaluation.ate_rmse(evaluation.camera_centers(est),
@@ -204,7 +248,7 @@ def run_sequence(P, CK, synth, evaluation, name: str, gt: np.ndarray, scene,
     print(f"{tag}: {name}: tracked {tracked}/{len(gt)}, metric ATE "
           f"{ate * 100:.3f} cm, keyframes {kfs}, points {slam.map.n_points}, "
           f"ms/frame after {N_WARM} warm frames: median {np.median(ms):.2f} "
-          f"mean {ms.mean():.2f} p90 {np.percentile(ms, 90):.2f}; hamming "
+          f"mean {ms.mean():.2f} p90 {np.percentile(ms, 90):.2f}; kernel "
           f"launches {launches}", flush=True)
     if lm.stage_ms:
         stages = {s: np.array([d[s] for d in lm.stage_ms]) for s in lm.stage_ms[0]
@@ -255,26 +299,40 @@ def main() -> int:
         print("phase 1: no CUDA device: this script runs only on the card",
               file=sys.stderr)
         return 2
-    card = card_line()
-    print(f"phase 1: card: {card}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
     from orbslam2_tpu_torch.ops import ba as BA
     from orbslam2_tpu_torch.ops import cuda_kernels as CK
-    from orbslam2_tpu_torch.utils import evaluation
+    from orbslam2_tpu_torch.utils import cuda_timing, evaluation
+    from orbslam2_tpu_torch.utils import probe_hamming as PH
     from orbslam2_tpu_torch.utils.profile_frame import bench_rgbd_config
 
+    global T
+    T = cuda_timing
+    card = T.card_line()
+    print(f"phase 1: card: {card}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
     t0 = time.perf_counter()
-    CK.build_kernels()
-    if not native.available():
-        raise RuntimeError("host map library (native/mapops.cpp) did not build")
+    with ThreadPoolExecutor(2) as pool:  # every nvcc and the g++ at once
+        probe = pool.submit(PH.probe_lib)
+        host = pool.submit(native.available)
+        CK.build_kernels()
+        lib = probe.result()
+        if not host.result():
+            raise RuntimeError("host map library (native/mapops.cpp) did not build")
     print(f"phase 2: built in {time.perf_counter() - t0:.2f} s "
           f"(compile seconds by library: {_build.build_seconds})", flush=True)
 
-    ham = check_hamming(CK)
+    mma_per_s = PH.mma_per_second(lib)
+    if mma_per_s is None:
+        raise AssertionError("the tensor-core rate loop was not measured")
+    print(f"phase 3: mma.sync m16n8k256 .b1 .and.popc: {mma_per_s:.4g} a second "
+          f"over {torch.cuda.get_device_properties(0).multi_processor_count} SMs",
+          flush=True)
+    ham = check_hamming_matrix(CK, PH, lib, mma_per_s)
+    best2 = check_hamming_best2(CK, PH, lib, mma_per_s)
     check_ba(BA)
 
     # the RGB-D configuration of bench.py: room scene, bf=250, ThDepth=25
@@ -288,35 +346,52 @@ def main() -> int:
     piped = [run_sequence(*args, "orbit", orbit, scene, cfg, pipelined=True),
              run_sequence(*args, "sweep", sweep(SWEEP_FRAMES), scene, cfg,
                           pipelined=True)]
+
+    def total(runs, kernel: str) -> dict:
+        by = {}
+        for r in runs:
+            for who, n in r["launches"][kernel].items():
+                by[who] = by.get(who, 0) + n
+        return by
+
+    # motion_model_core launches hamming_matrix, local_points_core and the
+    # mapper's matchers hamming_best2: both on both paths
     for what, runs in (("synchronous", sync), ("pipelined", piped)):
-        if sum(sum(r["launches"].values()) for r in runs) <= 0:
-            raise AssertionError(f"the {what} path never launched the hamming kernel")
+        for kernel in KERNELS:
+            if total(runs, kernel).get("tracker", 0) <= 0:
+                raise AssertionError(f"the {what} path's tracker never launched {kernel}")
     if piped[1]["counters"]["ba_solves"] < 1:
         raise AssertionError("pipelined sweep: no local BA solve")
-    if piped[1]["launches"].get("mapper", 0) <= 0:
-        raise AssertionError("pipelined sweep: the mapper never launched the "
-                             "hamming kernel")
-    launches_by = {}
-    for r in piped:
-        for who, n in r["launches"].items():
-            launches_by[who] = launches_by.get(who, 0) + n
-    launches = sum(launches_by.values())
-    print(f"phase 4b: hamming kernel launches on the pipelined path: {launches} "
-          f"{launches_by}; synchronous path: "
-          f"{sum(sum(r['launches'].values()) for r in sync)}", flush=True)
+    if piped[1]["launches"]["hamming_best2"].get("mapper", 0) <= 0:
+        raise AssertionError("pipelined sweep: the mapper never launched hamming_best2")
+    launches_by = {kernel: total(piped, kernel) for kernel in KERNELS}
+    print(f"phase 4b: kernel launches on the pipelined path: {launches_by}; "
+          f"synchronous path: {({k: total(sync, k) for k in KERNELS})}", flush=True)
     check_block_sync_free(P, synth, scene, cfg)
 
-    row = ham[(4096, 1024)]  # the local-map shape, the larger of the two
-    # every number in this line is measured in this run; the shape it was
-    # timed at goes as a string
-    print(json.dumps({"kernels": [{
-        "name": "hamming_matrix", "route": "cuda",
-        "source": "orbslam2_tpu_torch/csrc/hamming.cu",
-        "replaces": "orbslam2_tpu/ops/pallas_kernels.py:43",
-        "launches": launches, "launches_by": launches_by,
-        "max_abs_err": max(r["err"] for r in ham.values()),
-        "ms": row["ms"], "plain_ms": row["plain_ms"], "device_ms": row["dev"],
-        "plain_device_ms": row["plain_dev"], "shape": "4096x1024"}]}), flush=True)
+    # every number in these lines is measured in this run, at the shape the
+    # main path gives the kernel (named as a string): motion_model_core's
+    # [1024,1024] for hamming_matrix, local_points_core's [4096,1024] for
+    # hamming_best2 (on the 1% mask)
+    def entry(name: str, source: str, row: dict, rows: dict, library_ms) -> dict:
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "orbslam2_tpu/ops/pallas_kernels.py:43",
+                "launches": sum(launches_by[name].values()),
+                "launches_by": launches_by[name],
+                "max_abs_err": max(r["err"] for r in rows.values()),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "device_ms": row["dev"], "cold_device_ms": row["cold"],
+                "plain_device_ms": row["plain_dev"], "floor_ms": row["floor"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": library_ms, "shape": row["shape"]}
+
+    row_a, row_b = ham[(1024, 1024)], best2[(4096, 1024, "sparse")]
+    print(json.dumps({"kernels": [
+        entry("hamming_matrix", "orbslam2_tpu_torch/csrc/hamming.cu", row_a, ham,
+              row_a["library_ms"]),
+        # no single PyTorch call computes the masked best and second-best
+        entry("hamming_best2", "orbslam2_tpu_torch/csrc/hamming_best2.cu", row_b,
+              best2, None)]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

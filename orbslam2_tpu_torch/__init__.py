@@ -2,10 +2,13 @@
 
 The JAX package (orbslam2_tpu) is the reference; this package mirrors its
 module paths and runs on PyTorch, with the TPU kernel rewritten by hand for
-NVIDIA Hopper (csrc/hamming.cu). It never imports jax or orbslam2_tpu.
+NVIDIA Hopper in two forms (csrc/hamming.cu, csrc/hamming_best2.cu). It
+never imports jax or orbslam2_tpu.
 
-So far the port covers RGB-D tracking with the local mapper off:
-System(cfg, device="cuda").track_rgbd(...). See ROADMAP.md for the rest.
+So far the port covers RGB-D tracking with local mapping:
+System(cfg, device="cuda").track_rgbd(...), or pipelined with the mapper on
+its own thread, System(cfg, device="cuda", async_mapping=True)
+.run_sequence(frames, pipelined=True). See ROADMAP.md for the rest.
 """
 import torch as _torch
 

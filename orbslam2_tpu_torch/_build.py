@@ -51,21 +51,24 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def build_library(name: str, sources: list[Path], compiler: str) -> Path:
+def build_library(name: str, sources: list[Path], compiler: str,
+                  headers: tuple[Path, ...] = ()) -> Path:
     """Return the path of lib<name>.so, compiling it first if needed.
 
-    compiler: "nvcc" or "g++". Raises RuntimeError (with the compiler's
-    output) when the build fails."""
+    compiler: "nvcc" or "g++". headers: files the sources include, which
+    make the library stale like a source but are not given to the compiler.
+    Raises RuntimeError (with the compiler's output) when the build fails."""
     if compiler not in ("nvcc", "g++"):
         raise ValueError(f"unknown compiler {compiler!r}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"lib{name}.so"
-    if not _stale(lib, sources):
+    inputs = [*sources, *headers]
+    if not _stale(lib, inputs):
         return lib
     with open(BUILD_DIR / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if not _stale(lib, sources):  # another process built it meanwhile
+            if not _stale(lib, inputs):  # another process built it meanwhile
                 return lib
             tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
             if compiler == "nvcc":

@@ -1,8 +1,11 @@
 """Per-frame matching functions used by the tracker.
 
 Counterpart of orbslam2_tpu/frontend/matcher.py. Each function fuses one of
-the reference's pointer-chasing search loops into a dense masked match over
-one Hamming matrix (the CUDA kernel, ops/cuda_kernels.py):
+the reference's pointer-chasing search loops into a dense masked match on
+the CUDA kernels of ops/cuda_kernels.py: `motion_model_core` computes one
+Hamming matrix (`hamming_matrix`) and reduces it under two masks; every other
+function here builds one mask and calls the fused best / second-best kernel
+(`hamming_best2`, through ops/matching.py hamming_best_match):
 
 - `motion_model_core` / `match_motion_model` <- ORBmatcher::SearchByProjection
   (cur, last, th) (src/ORBmatcher.cpp:1564-1721)
@@ -157,9 +160,8 @@ def match_local_points(T, pts_xyz, pt_valid, pt_desc, pt_normal,
 def match_descriptors_ratio(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b):
     """Global ratio-test matching a->b (SearchByBoW's work without the
     vocabulary gate): TH_LOW + ratio 0.7 + rotation histogram."""
-    dist = M.hamming_matrix(desc_a, desc_b)
     cand = valid_a[:, None] & valid_b[None, :]
-    res = M.masked_best_match(dist, cand, M.TH_LOW, 0.7)
+    res = M.hamming_best_match(desc_a, desc_b, cand, M.TH_LOW, 0.7)
     ok = M.rotation_consistency(angle_a, angle_b, res.idx, res.valid)
     return M.resolve_duplicate_targets(M._select(ok, res), desc_b.shape[0])
 
@@ -196,7 +198,6 @@ def epipolar_match_core(T1, T2, kp1_xy, kp1_oct, desc1, free1,
     sig2 = sigma2_levels[kp2_oct.clamp(0, sigma2_levels.shape[0] - 1).long()]
     epi_ok = dsqr < 3.84 * sig2[None, :]
 
-    dist = M.hamming_matrix(desc1, desc2)
     cand = epi_ok & free1[:, None] & free2[None, :]
-    res = M.masked_best_match(dist, cand, M.TH_LOW, 0.75)
+    res = M.hamming_best_match(desc1, desc2, cand, M.TH_LOW, 0.75)
     return M.resolve_duplicate_targets(res, kp2_xy.shape[0])

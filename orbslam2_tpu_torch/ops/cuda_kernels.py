@@ -2,26 +2,34 @@
 
 Counterpart of orbslam2_tpu/ops/pallas_kernels.py. The JAX package has one
 Pallas TPU kernel, the tiled XOR-popcount Hamming matrix
-(`hamming_matrix_pallas`); here it is `csrc/hamming.cu`, built for sm_90a
-with nvcc into `build/` on first use (_build.py) and bound with ctypes.
+(`hamming_matrix_pallas`); the port has it in two forms, both on the tensor
+cores' single-bit mma (csrc/hamming_tile.cuh), built for sm_90a with nvcc
+into `build/` on first use (_build.py) and bound with ctypes:
 
-`hamming_matrix` is the wrapper every matcher calls. On a CUDA tensor it
-launches the kernel (or raises); on a CPU tensor it runs the plain version
-`hamming_matrix_ref`, which is also what tests and chip_smoke.py compare the
-kernel with. `hamming_matrix.launches` counts kernel launches, and
-`hamming_matrix.launches_by` splits them by caller: the launches a thread
-makes inside `launches_counted_as(name)` count under `name`, the others
-under "tracker".
+- `hamming_matrix` (csrc/hamming.cu): the same function, [A, 8] x [B, 8] ->
+  [A, B] int32. Plain version `hamming_matrix_ref`.
+- `hamming_best2` (csrc/hamming_best2.cu): the matrix fused with the masked
+  best / second-best reduction that every matcher applies to it, so the
+  [A, B] distances never reach device memory. Plain version
+  `hamming_best2_ref`.
+
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
+it runs its plain version, which is also what tests and chip_smoke.py compare
+the kernel with. `<wrapper>.launches` counts kernel launches, and
+`<wrapper>.launches_by` splits them by caller: the launches a thread makes
+inside `launches_counted_as(name)` count under `name`, the others under
+"tracker".
 
 Descriptors are [N, 8] int32 tensors holding the bit patterns of the 8
 uint32 words (PyTorch has no popcount and no uint32 shifts on the CPU); the
-kernel reinterprets them as uint32.
+kernels reinterpret them as uint32.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -33,8 +41,22 @@ DESC_WORDS = 8
 # element budget of the plain version's [rows, B, 32] byte intermediate:
 # 256 rows a chunk at B = 1024
 _REF_CHUNK_ELEMS = 1 << 23
-_HAMMING_SRC = PKG_DIR / "csrc" / "hamming.cu"
-_lib = None
+BIG = 1 << 20  # the "no match" distance of every matcher
+# most descriptors in desc_b: hamming_best2 packs a column into 22 bits of a
+# key, and hamming.cu puts the 64-column tiles on the grid's y axis
+MAX_COLUMNS = 1 << 22
+_CSRC = PKG_DIR / "csrc"
+_TILE_HEADER = _CSRC / "hamming_tile.cuh"
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# library name -> (source, launch function, its argument types)
+_KERNELS = {
+    "hamming": (_CSRC / "hamming.cu", "hamming_matrix_launch",
+                [_PTR, _PTR, _PTR, _INT, _INT, _PTR]),
+    "hamming_best2": (_CSRC / "hamming_best2.cu", "hamming_best2_launch",
+                      [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR]),
+}
+_launchers: dict = {}
+_load_lock = threading.Lock()
 _count_lock = threading.Lock()
 _caller = threading.local()
 
@@ -45,21 +67,30 @@ def _popcount8() -> np.ndarray:
     return np.array([bin(i).count("1") for i in range(256)], np.int32)
 
 
-def _load_lib():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library("hamming", [_HAMMING_SRC], "nvcc")))
-        lib.hamming_matrix_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.hamming_matrix_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _library(name: str):
+    """Path of library `name`, compiled first if it is stale."""
+    return build_library(name, [_KERNELS[name][0]], "nvcc", headers=(_TILE_HEADER,))
+
+
+def _launcher(name: str):
+    """The launch function of library `name`, built and loaded on first use."""
+    with _load_lock:
+        if name not in _launchers:
+            _, fn_name, argtypes = _KERNELS[name]
+            fn = getattr(ctypes.CDLL(str(_library(name))), fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _launchers[name] = fn
+        return _launchers[name]
 
 
 def build_kernels() -> None:
-    """Compile (if stale) and load every CUDA kernel of the package."""
-    _load_lib()
+    """Compile (if stale) and load every CUDA kernel of the package, one
+    nvcc per source, all started together."""
+    with ThreadPoolExecutor(len(_KERNELS)) as pool:
+        list(pool.map(_library, _KERNELS))
+    for name in _KERNELS:
+        _launcher(name)
 
 
 def _check_desc(name: str, d: torch.Tensor) -> None:
@@ -70,6 +101,35 @@ def _check_desc(name: str, d: torch.Tensor) -> None:
                          f"got {tuple(d.shape)}")
     if not d.is_contiguous():
         raise ValueError(f"{name}: descriptors must be contiguous")
+    if d.data_ptr() % 8 != 0:
+        raise ValueError(f"{name}: descriptors must be 8-byte aligned")
+
+
+def _check_pair(desc_a: torch.Tensor, desc_b: torch.Tensor) -> None:
+    _check_desc("desc_a", desc_a)
+    _check_desc("desc_b", desc_b)
+    if desc_a.device != desc_b.device:
+        raise ValueError(f"descriptors on different devices: "
+                         f"{desc_a.device} and {desc_b.device}")
+    if desc_a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no Hamming kernel for device {desc_a.device}")
+    if desc_b.shape[0] > MAX_COLUMNS:
+        raise ValueError(f"desc_b: at most {MAX_COLUMNS} descriptors, "
+                         f"got {desc_b.shape[0]}")
+
+
+def _launch(wrapper, name: str, device: torch.device, *args) -> None:
+    """Launch library `name`'s kernel on `device`'s current stream, raise on
+    a refused launch, and count the launch on `wrapper`."""
+    fn = _launcher(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        wrapper.launches += 1
+        who = getattr(_caller, "name", "tracker")
+        wrapper.launches_by[who] = wrapper.launches_by.get(who, 0) + 1
 
 
 def hamming_matrix_ref(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
@@ -90,37 +150,82 @@ def hamming_matrix_ref(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tens
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """[A, 8] int32 x [B, 8] int32 -> [A, B] int32 Hamming distances."""
-    _check_desc("desc_a", desc_a)
-    _check_desc("desc_b", desc_b)
-    if desc_a.device != desc_b.device:
-        raise ValueError(f"descriptors on different devices: "
-                         f"{desc_a.device} and {desc_b.device}")
+    _check_pair(desc_a, desc_b)
     if desc_a.device.type == "cpu":
         return hamming_matrix_ref(desc_a, desc_b)
-    if desc_a.device.type != "cuda":
-        raise ValueError(f"no Hamming kernel for device {desc_a.device}")
     A, B = desc_a.shape[0], desc_b.shape[0]
     out = torch.empty((A, B), dtype=torch.int32, device=desc_a.device)
     if A == 0 or B == 0:
         return out  # nothing to compute: no launch
-    lib = _load_lib()
-    with torch.cuda.device(desc_a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.hamming_matrix_launch(desc_a.data_ptr(), desc_b.data_ptr(),
-                                        out.data_ptr(), A, B, stream)
-    if err != 0:
-        raise RuntimeError(f"hamming kernel launch failed: CUDA error {err}")
-    with _count_lock:
-        hamming_matrix.launches += 1
-        who = getattr(_caller, "name", "tracker")
-        hamming_matrix.launches_by[who] = hamming_matrix.launches_by.get(who, 0) + 1
+    _launch(hamming_matrix, "hamming", desc_a.device, desc_a.data_ptr(),
+            desc_b.data_ptr(), out.data_ptr(), A, B)
     return out
+
+
+def masked_best2(dist: torch.Tensor, cand: torch.Tensor):
+    """Best and second-best of every row of a given [A, B] distance matrix
+    over the candidate columns: BIG outside the mask, argmin (first index
+    among ties, as jnp.argmin), and the minimum with the best column set to
+    BIG. Returns (idx, best, second), each [A] int32."""
+    d = torch.where(cand, dist, BIG)
+    idx = torch.argmin(d, dim=1, keepdim=True)
+    best = d.gather(1, idx)[:, 0]
+    second = d.scatter(1, idx, BIG).amin(dim=1)
+    return idx[:, 0].to(torch.int32), best, second
+
+
+def hamming_best2_ref(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                      cand: torch.Tensor):
+    """Plain version of `hamming_best2`: the dense matrix, then its masked
+    reduction."""
+    return masked_best2(hamming_matrix_ref(desc_a, desc_b), cand)
+
+
+def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                  cand: torch.Tensor):
+    """Best and second-best Hamming match of every row of desc_a among the
+    candidate columns of desc_b, without the [A, B] distances in memory.
+
+    desc_a: [A, 8] int32; desc_b: [B, 8] int32, B >= 1; cand: [A, B] bool.
+    Returns (idx, best, second), each [A] int32: the lowest distance over the
+    row's candidates, the lowest column that attains it, and the lowest
+    distance over all other columns (equal to best on a tie). A row without
+    a candidate gives idx 0 and best = second = BIG; a row with one candidate
+    second = BIG."""
+    _check_pair(desc_a, desc_b)
+    A, B = desc_a.shape[0], desc_b.shape[0]
+    if cand.dtype != torch.bool:
+        raise TypeError(f"cand: expected a bool mask, got {cand.dtype}")
+    if tuple(cand.shape) != (A, B):
+        raise ValueError(f"cand: expected shape [{A}, {B}], got {tuple(cand.shape)}")
+    if cand.device != desc_a.device:
+        raise ValueError(f"cand on {cand.device}, descriptors on {desc_a.device}")
+    if not cand.is_contiguous():
+        raise ValueError("cand: the mask must be contiguous")
+    if B == 0:
+        raise ValueError("desc_b: no best match among 0 descriptors")
+    if desc_a.device.type == "cpu":
+        return hamming_best2_ref(desc_a, desc_b, cand)
+    if B % 16 == 0 and cand.data_ptr() % 16 != 0:
+        raise ValueError("cand: the mask must be 16-byte aligned")
+    idx, best, second = torch.empty((3, A), dtype=torch.int32,
+                                    device=desc_a.device).unbind(0)
+    if A == 0:
+        return idx, best, second  # nothing to compute: no launch
+    _launch(hamming_best2, "hamming_best2", desc_a.device, desc_a.data_ptr(),
+            desc_b.data_ptr(), cand.data_ptr(), idx.data_ptr(),
+            best.data_ptr(), second.data_ptr(), A, B)
+    return idx, best, second
+
+
+_WRAPPERS = (hamming_matrix, hamming_best2)
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        hamming_matrix.launches = 0
-        hamming_matrix.launches_by = {}
+        for wrapper in _WRAPPERS:
+            wrapper.launches = 0
+            wrapper.launches_by = {}
 
 
 @contextlib.contextmanager

@@ -1,11 +1,17 @@
 """Hamming descriptor matching on tensors.
 
 Counterpart of orbslam2_tpu/ops/matching.py (the reference's ORBmatcher,
-src/ORBmatcher.cpp): every matcher is one dense masked [A, B] Hamming matrix
-followed by masked reductions, with the reference's gating rules:
+src/ORBmatcher.cpp): every matcher is a dense candidate mask [A, B], the
+best and second-best Hamming distance of each row under it, and the
+reference's gating rules on the resulting [A] vectors:
 
-- DescriptorDistance (:1901)      -> `hamming_matrix`, the CUDA kernel
-  (ops/cuda_kernels.py)
+- DescriptorDistance (:1901)      -> the CUDA kernels of ops/cuda_kernels.py.
+  `hamming_best_match` (search_by_projection here; match_descriptors_ratio
+  and epipolar_match_core in frontend/matcher.py) runs on the fused kernel
+  `hamming_best2`: the [A, B] distances are never written. Only
+  frontend/matcher.py motion_model_core takes the matrix itself
+  (`hamming_matrix`) and reduces it twice, under two masks, with
+  `masked_best_match`.
 - TH_HIGH=100 / TH_LOW=50 / HISTO_LENGTH=30 constants (:37-39)
 - nn-ratio test + rotation-histogram consistency (ComputeThreeMaxima, :1854)
 - SearchByProjection (:63, :1564) -> `search_by_projection`
@@ -20,12 +26,12 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda_kernels import hamming_matrix  # noqa: F401  (the matchers' kernel)
+from .cuda_kernels import (BIG, hamming_best2, hamming_matrix,  # noqa: F401
+                           masked_best2)
 
 TH_HIGH = 100
 TH_LOW = 50
 HISTO_LENGTH = 30
-BIG = 1 << 20
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -65,20 +71,30 @@ def rotation_consistency(angle_a, angle_b, match_idx, valid):
     return valid & in_top.any(dim=-1)
 
 
-def masked_best_match(dist: torch.Tensor, cand_mask: torch.Tensor,
-                      max_dist: int, ratio: float | None) -> MatchResult:
-    """Best + second-best along axis 1 with candidate mask, distance gate and
-    optional Lowe ratio test. Ties take the lowest column (argmin's first
-    index, as jnp.argmin)."""
-    d = torch.where(cand_mask, dist, BIG)
-    best_idx = torch.argmin(d, dim=1, keepdim=True)
-    best = d.gather(1, best_idx)[:, 0]
-    second = d.scatter(1, best_idx, BIG).amin(dim=1)
-    best_idx = best_idx[:, 0].to(torch.int32)
+def best_match_gate(idx: torch.Tensor, best: torch.Tensor, second: torch.Tensor,
+                    max_dist: int, ratio: float | None) -> MatchResult:
+    """Distance gate and optional Lowe ratio test on each row's best column,
+    best and second-best distance."""
     ok = best <= max_dist
     if ratio is not None:
         ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
-    return MatchResult(torch.where(ok, best_idx, -1), torch.where(ok, best, BIG))
+    return MatchResult(torch.where(ok, idx, -1), torch.where(ok, best, BIG))
+
+
+def masked_best_match(dist: torch.Tensor, cand_mask: torch.Tensor,
+                      max_dist: int, ratio: float | None) -> MatchResult:
+    """Best + second-best along axis 1 of a given distance matrix with
+    candidate mask, distance gate and optional Lowe ratio test. Ties take the
+    lowest column (argmin's first index, as jnp.argmin)."""
+    return best_match_gate(*masked_best2(dist, cand_mask), max_dist, ratio)
+
+
+def hamming_best_match(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                       cand_mask: torch.Tensor, max_dist: int,
+                       ratio: float | None) -> MatchResult:
+    """masked_best_match(hamming_matrix(desc_a, desc_b), ...) on the fused
+    kernel: the same result without the [A, B] distances in memory."""
+    return best_match_gate(*hamming_best2(desc_a, desc_b, cand_mask), max_dist, ratio)
 
 
 def search_by_projection(proj_uv, pred_level, radius, pt_desc, pt_valid,
@@ -111,8 +127,7 @@ def search_by_projection(proj_uv, pred_level, radius, pt_desc, pt_valid,
         er_ok = (kp_ur[None, :] < 0) | (
             (pt_ur[:, None] - kp_ur[None, :]).abs() <= r_eff[:, None])
         cand = cand & er_ok
-    dist = hamming_matrix(pt_desc, kp_desc)
-    return masked_best_match(dist, cand, max_dist, ratio)
+    return hamming_best_match(pt_desc, kp_desc, cand, max_dist, ratio)
 
 
 def resolve_duplicate_targets(res: MatchResult, n_targets: int) -> MatchResult:

@@ -1,0 +1,245 @@
+"""What bounds the Hamming kernels on one CUDA device.
+
+    python3 -m orbslam2_tpu_torch.utils.probe_hamming
+
+Builds csrc/hamming_scalar_probe.cu (the scalar-pipe kernel that the
+tensor-core design replaced, and its variants) beside the package's two
+kernels, and prints, at the three shapes of chip_smoke.py, device times from
+CUDA events around calls queued behind a spin kernel (utils/cuda_timing.py):
+
+1. the scalar kernel split into its costs: an empty kernel with its grid
+   (the fixed cost of a launch), the stores without the popcounts, the
+   popcounts without the stores, and the kernel whole, warm and cold;
+2. whether nvcc takes the single-bit mma's .xor.popc form for sm_90a, and
+   the rate of the .and.popc form (mma.sync per clock and SM);
+3. `hamming_matrix` (exact against its plain version first), warm and cold,
+   in the same call as the scalar kernel it replaced;
+4. `hamming_best2` (exact first) under the three mask kinds of `best2_cases`,
+   warm and cold, beside the unfused pair it replaces (hamming_matrix, then
+   the plain masked reduction on the matrix); also at [4096,2048], to show
+   how it grows with the pairs.
+
+Every line carries numbers of this run only; the first line is the card's
+name and power limit. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..ops import cuda_kernels as CK
+from .cuda_timing import (HBM_BYTES_PER_S, card_line, cold_count, fmt_ms,
+                          queued_cold_ms, queued_ms)
+
+SHAPES = ((4096, 1024), (1024, 1024), (1000, 777))
+LARGER = (4096, 2048)  # hamming_best2 only
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_XOR_POPC = """
+__global__ void k(int* out, unsigned a, unsigned b) {
+    int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+    asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.xor.popc "
+        "{%0, %1, %2, %3}, {%4, %4, %4, %4}, {%5, %5}, {%0, %1, %2, %3};"
+        : "+r"(c0), "+r"(c1), "+r"(c2), "+r"(c3) : "r"(a), "r"(b));
+    out[threadIdx.x] = c0 + c1 + c2 + c3;
+}
+"""
+
+
+def descriptors(rng, n: int) -> np.ndarray:
+    """[n, 8] random descriptor words as the int32 bit-views the port uses."""
+    return rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32)
+
+
+def best2_cases(A: int, B: int, seed: int = 0):
+    """Seeded inputs for `hamming_best2`, as (kind, desc_a, desc_b, cand)
+    numpy arrays, one per kind of mask:
+
+    sparse  about 1% true: the density a radius gate leaves;
+    full    all true;
+    edges   desc_b holds every descriptor twice (columns 2k and 2k+1 are
+            equal, so every best distance is tied), the mask is 5% true, and
+            of every 4 rows one has no candidate, one has exactly one, one
+            has exactly one tied pair of columns, one is left as drawn."""
+    rng = np.random.default_rng(seed)
+    a, b = descriptors(rng, A), descriptors(rng, B)
+    yield "sparse", a, b, rng.random((A, B)) < 0.01
+    yield "full", a, b, np.ones((A, B), bool)
+    b2 = b.copy()
+    b2[1::2] = b2[0:B - 1:2]
+    cand = rng.random((A, B)) < 0.05
+    cand[0::4] = False
+    cand[1::4] = False
+    one = np.arange(1, A, 4)
+    cand[one, rng.integers(0, B, one.size)] = True
+    if B >= 2:
+        cand[2::4] = False
+        pair = np.arange(2, A, 4)
+        first = 2 * rng.integers(0, B // 2, pair.size)
+        cand[pair, first] = True
+        cand[pair, first + 1] = True
+    yield "edges", a, b2, cand
+
+
+def xor_popc_compiles() -> tuple[bool, str]:
+    """Whether nvcc accepts mma.sync ... .b1 .xor.popc for sm_90a."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "xor_popc.cu"
+        src.write_text(_XOR_POPC)
+        proc = subprocess.run(
+            [_build._find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-cubin", "-o", str(Path(tmp) / "xor_popc.cubin"), str(src)],
+            capture_output=True, text=True, timeout=300)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    return proc.returncode == 0, lines[0] if lines else ""
+
+
+def probe_lib():
+    """The probe library: scalar_probe_launch, empty_launch, mma_rate_launch."""
+    src = _build.PKG_DIR / "csrc" / "hamming_scalar_probe.cu"
+    lib = ctypes.CDLL(str(_build.build_library(
+        "hamming_scalar_probe", [src], "nvcc",
+        headers=(_build.PKG_DIR / "csrc" / "hamming_tile.cuh",))))
+    lib.scalar_probe_launch.argtypes = [_INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR]
+    lib.empty_launch.argtypes = [_INT, _INT, _INT, _PTR]
+    lib.mma_rate_launch.argtypes = [_PTR, _INT, _INT, _PTR]
+    return lib
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def empty_kernel_ms(lib, grid_x: int, grid_y: int, threads: int) -> float | None:
+    """Device time of an empty kernel of that grid (queued events)."""
+    return queued_ms(lambda: _check(
+        lib.empty_launch(grid_x, grid_y, threads, _stream()), "empty kernel"), reps=20)
+
+
+def mma_per_second(lib) -> float | None:
+    """Rate of mma.sync m16n8k256 .b1 .and.popc over the whole card, from a
+    kernel of 4 blocks an SM whose 8 warps each issue 8 independent chains."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 4 * sms, 2048
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    ms = queued_ms(lambda: _check(
+        lib.mma_rate_launch(out.data_ptr(), blocks, iters, _stream()), "mma rate"), reps=5)
+    return None if ms is None else blocks * 8 * iters * lib.mma_rate_chains() / (ms * 1e-3)
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def probe_scalar(lib, a, b) -> None:
+    A, B = a.shape[0], b.shape[0]
+    out_bytes = 4 * A * B
+    n_sets = cold_count(out_bytes)
+    outs = [torch.empty((A, B), dtype=torch.int32, device="cuda")
+            for _ in range(n_sets)]
+
+    def launch(variant, i=0):
+        _check(lib.scalar_probe_launch(variant, a.data_ptr(), b.data_ptr(),
+                                       outs[i].data_ptr(), A, B, _stream()),
+               f"scalar probe variant {variant}")
+
+    launch(0)
+    if not torch.equal(outs[0], CK.hamming_matrix_ref(a, b)):
+        raise AssertionError(f"scalar kernel disagrees at [{A},{B}]")
+    names = ("whole", "empty", "stores, add for popc", "popc, one store a thread")
+    warm = [queued_ms(lambda v=v: launch(v), reps=20) for v in range(4)]
+    cold = queued_cold_ms(lambda i: launch(0, i), n_sets)
+    print(f"scalar kernel [{A},{B}] device ms (queued events, warm): "
+          + "; ".join(f"{n} {fmt_ms(t)}" for n, t in zip(names, warm))
+          + f"; whole, cold over {n_sets} outputs {fmt_ms(cold)}; byte bound "
+          f"{1e3 * (out_bytes + 32 * (A + B)) / HBM_BYTES_PER_S:.4f} ms", flush=True)
+
+
+def probe_mma_rate(lib) -> None:
+    per_s = mma_per_second(lib)
+    if per_s is None:
+        print("mma rate: not measured", flush=True)
+        return
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    print(f"mma.sync m16n8k256 b1 and.popc: {per_s:.4g} a second, "
+          f"{per_s * 16 * 8 * 256 * 2 / 1e12:.1f} Tbitop/s, "
+          f"{per_s / sms / clock_hz:.3f} per SM and clock at the card's maximum "
+          f"SM clock of {clock_hz / 1e6:.0f} MHz", flush=True)
+
+
+def probe_matrix(a, b) -> None:
+    A, B = a.shape[0], b.shape[0]
+    got = CK.hamming_matrix(a, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, CK.hamming_matrix_ref(a, b)):
+        raise AssertionError(f"hamming_matrix disagrees at [{A},{B}]")
+    n_sets = cold_count(4 * A * B)
+    keep = []
+    warm = queued_ms(lambda: CK.hamming_matrix(a, b), reps=20)
+    cold = queued_ms(lambda: keep.append(CK.hamming_matrix(a, b)), reps=n_sets)
+    print(f"hamming_matrix [{A},{B}] exact; device ms (queued events): warm "
+          f"{fmt_ms(warm)}, cold over {n_sets} kept outputs {fmt_ms(cold)}",
+          flush=True)
+
+
+def probe_best2(A: int, B: int) -> None:
+    for kind, a_np, b_np, cand_np in best2_cases(A, B):
+        a, b, cand = (torch.from_numpy(x).cuda() for x in (a_np, b_np, cand_np))
+        got = CK.hamming_best2(a, b, cand)
+        torch.cuda.synchronize()
+        ref = CK.hamming_best2_ref(a, b, cand)
+        for name, x, y in zip(("idx", "best", "second"), got, ref):
+            if not torch.equal(x, y):
+                bad = int((x != y).sum())
+                raise AssertionError(f"hamming_best2 {name} disagrees at [{A},{B}] "
+                                     f"{kind} on {bad} rows")
+        n_sets = cold_count(A * B)
+        masks = [cand.clone() for _ in range(n_sets)]
+        warm = queued_ms(lambda: CK.hamming_best2(a, b, cand), reps=20)
+        cold = queued_cold_ms(lambda i: CK.hamming_best2(a, b, masks[i]), n_sets)
+        unfused = queued_ms(
+            lambda: CK.masked_best2(CK.hamming_matrix(a, b), cand), reps=20)
+        print(f"hamming_best2 [{A},{B}] {kind} ({100 * cand_np.mean():.2f}% true) "
+              f"exact; device ms (queued events): warm {fmt_ms(warm)}, cold over "
+              f"{n_sets} masks {fmt_ms(cold)}; unfused (hamming_matrix + plain "
+              f"reduction) warm {fmt_ms(unfused)}; byte bound "
+              f"{1e3 * (A * B + 32 * (A + B) + 12 * A) / HBM_BYTES_PER_S:.4f} ms",
+              flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: this probe runs only on the card", file=sys.stderr)
+        return 2
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    ok, msg = xor_popc_compiles()
+    print(f"mma.sync b1 .xor.popc for sm_90a: "
+          f"{'accepted' if ok else 'refused'} by nvcc ({msg})", flush=True)
+    CK.build_kernels()
+    lib = probe_lib()
+    print(f"built (compile seconds by library: {_build.build_seconds})", flush=True)
+    probe_mma_rate(lib)
+    rng = np.random.default_rng(0)
+    for A, B in SHAPES:
+        a = torch.from_numpy(descriptors(rng, A)).cuda()
+        b = torch.from_numpy(descriptors(rng, B)).cuda()
+        probe_scalar(lib, a, b)
+        probe_matrix(a, b)
+        probe_best2(A, B)
+    probe_best2(*LARGER)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,7 +23,6 @@ there. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -37,6 +36,7 @@ from ..io import synth
 from ..ops import features as F
 from ..ops import pose_opt as PO
 from ..ops import refine as RF
+from .cuda_timing import card_line
 
 N_WARM, N_WINDOW = 12, 5
 STAGES = ((F, "extract_orb"), (FM, "motion_model_core"), (RF, "refine_offsets"),
@@ -99,10 +99,7 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     scene = synth.make_room(seed=0)
     gt = synth.orbit_trajectory(48)

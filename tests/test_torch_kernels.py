@@ -1,9 +1,11 @@
-"""The port's Hamming kernel K1 (orbslam2_tpu_torch/ops/cuda_kernels.py)
-against the JAX package's Pallas kernel and XLA expression.
+"""The port's Hamming kernels (orbslam2_tpu_torch/ops/cuda_kernels.py):
+`hamming_matrix` against the JAX package's Pallas kernel and XLA expression,
+and the fused `hamming_best2` against the JAX package's masked reduction of
+that matrix (orbslam2_tpu/ops/matching.py masked_best_match).
 
-On the CPU the wrapper runs the plain PyTorch version; the CUDA kernel itself
-runs only on a card (the `cuda` test below, and chip_smoke.py). Hamming
-distances are integers: every comparison here is exact.
+On the CPU a wrapper runs its plain PyTorch version; the CUDA kernels
+themselves run only on a card (the `cuda` tests below, and chip_smoke.py).
+Hamming distances are integers: every comparison here is exact.
 """
 import jax
 import jax.numpy as jnp
@@ -11,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from orbslam2_tpu.ops import matching as JM
 from orbslam2_tpu.ops import pallas_kernels as PK
 from orbslam2_tpu_torch import _build
 from orbslam2_tpu_torch.ops import cuda_kernels as CK
+from orbslam2_tpu_torch.utils.probe_hamming import best2_cases
 
 
 def _desc(rng, n):
@@ -111,3 +115,117 @@ def test_cuda_kernel_matches_plain():
     empty = CK.hamming_matrix(a[:0], b)
     assert empty.shape == (0, b.shape[0])
     assert CK.hamming_matrix.launches == before  # nothing to launch
+
+
+def _jax_best2(a_i32, b_i32, cand):
+    """The JAX package's reduction (ops/matching.py masked_best_match before
+    its gate) on its own Hamming matrix."""
+    a, b = (jnp.asarray(x.view(np.uint32)) for x in (a_i32, b_i32))
+    d = jnp.where(jnp.asarray(cand), JM.hamming_matrix(a, b), JM.BIG)
+    idx = jnp.argmin(d, axis=1)
+    best = jnp.min(d, axis=1)
+    second = jnp.min(d.at[jnp.arange(d.shape[0]), idx].set(JM.BIG), axis=1)
+    return [np.asarray(x) for x in (idx, best, second)]
+
+
+def _port_best2(a_i32, b_i32, cand, fn=CK.hamming_best2):
+    out = fn(*(torch.from_numpy(x) for x in (a_i32, b_i32, cand)))
+    assert all(x.dtype == torch.int32 for x in out)
+    return [x.numpy() for x in out]
+
+
+@pytest.mark.parametrize("kind", ["sparse", "full", "edges"])
+@pytest.mark.parametrize("shape", [(300, 700), (1, 1), (5, 1031), (9, 1), (64, 2)])
+def test_best2_matches_jax(shape, kind):
+    """Index, best and second agree exactly with the JAX reduction, over
+    ragged shapes, B = 1, and masks with rows that have no candidate, one
+    candidate and tied best columns (the `edges` kind)."""
+    (a, b, cand), = [c[1:] for c in best2_cases(*shape, seed=shape[0]) if c[0] == kind]
+    want = _jax_best2(a, b, cand)
+    for got in (_port_best2(a, b, cand), _port_best2(a, b, cand, CK.hamming_best2_ref)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_best2_edge_rows_by_hand():
+    """No candidate: idx 0, best = second = BIG. One candidate: second = BIG.
+    A tied pair: the lower column wins and second == best."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 2 ** 32, (3, 8), dtype=np.uint32).view(np.int32)
+    b = rng.integers(0, 2 ** 32, (6, 8), dtype=np.uint32).view(np.int32)
+    b[4] = b[2]
+    cand = np.zeros((3, 6), bool)
+    cand[1, 3] = True
+    cand[2, [4, 2]] = True
+    idx, best, second = _port_best2(a, b, cand)
+    d = _port(a.view(np.uint32), b.view(np.uint32))
+    np.testing.assert_array_equal(idx, [0, 3, 2])
+    np.testing.assert_array_equal(best, [CK.BIG, d[1, 3], d[2, 2]])
+    np.testing.assert_array_equal(second, [CK.BIG, CK.BIG, d[2, 2]])
+
+
+def test_best2_case_generator_covers_the_edges():
+    """The `edges` masks really hold what the card check relies on."""
+    (a, b, cand), = [c[1:] for c in best2_cases(64, 48) if c[0] == "edges"]
+    n = cand.sum(axis=1)
+    assert (n[0::4] == 0).all() and (n[1::4] == 1).all() and (n[2::4] == 2).all()
+    idx, best, second = _port_best2(a, b, cand)
+    assert (best[2::4] == second[2::4]).all() and (best[2::4] < CK.BIG).all()
+    np.testing.assert_array_equal(b[1::2], b[0::2])
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (torch.zeros((3, 5), dtype=torch.uint8), TypeError),       # not bool
+    (torch.zeros((3, 5), dtype=torch.int32), TypeError),
+    (torch.zeros((5, 3), dtype=torch.bool), ValueError),       # wrong shape
+    (torch.zeros((3, 5, 1), dtype=torch.bool), ValueError),
+    (torch.zeros((5, 3), dtype=torch.bool).T, ValueError),     # wrong strides
+    (torch.zeros((3, 10), dtype=torch.bool)[:, ::2], ValueError),
+    (torch.zeros((3, 5), dtype=torch.bool, device="meta"), ValueError),  # device
+])
+def test_best2_wrapper_rejects_bad_mask(bad, exc):
+    a = torch.zeros((3, 8), dtype=torch.int32)
+    b = torch.zeros((5, 8), dtype=torch.int32)
+    with pytest.raises(exc):
+        CK.hamming_best2(a, b, bad)
+
+
+def test_best2_wrapper_rejects_bad_descriptors_and_no_columns():
+    good = torch.zeros((3, 8), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        CK.hamming_best2(good.float(), good, torch.zeros((3, 3), dtype=torch.bool))
+    with pytest.raises(ValueError):  # argmin over no column has no answer
+        CK.hamming_best2(good, good[:0], torch.zeros((3, 0), dtype=torch.bool))
+    idx, best, second = CK.hamming_best2(good[:0], good, torch.zeros((0, 3), dtype=torch.bool))
+    assert idx.shape == best.shape == second.shape == (0,)
+
+
+def test_best2_cpu_tensors_count_no_launch():
+    before = (CK.hamming_best2.launches, dict(CK.hamming_best2.launches_by))
+    (a, b, cand), = [c[1:] for c in best2_cases(10, 12) if c[0] == "sparse"]
+    with CK.launches_counted_as("mapper"):
+        _port_best2(a, b, cand)
+    assert (CK.hamming_best2.launches, CK.hamming_best2.launches_by) == before
+
+
+def test_reset_launch_counts_covers_both_kernels():
+    CK.hamming_matrix.launches_by["probe"] = 1
+    CK.hamming_best2.launches = 7
+    CK.reset_launch_counts()
+    for wrapper in (CK.hamming_matrix, CK.hamming_best2):
+        assert wrapper.launches == 0 and wrapper.launches_by == {}
+
+
+@pytest.mark.cuda
+def test_cuda_best2_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for A, B in [(1024, 1024), (4096, 1024), (1000, 777), (3, 1), (17, 2100)]:
+        for kind, a, b, cand in best2_cases(A, B, seed=11):
+            args = [torch.from_numpy(x).cuda() for x in (a, b, cand)]
+            before = CK.hamming_best2.launches
+            got = CK.hamming_best2(*args)
+            torch.cuda.synchronize()
+            assert CK.hamming_best2.launches == before + 1
+            for g, w in zip(got, CK.hamming_best2_ref(*args)):
+                assert torch.equal(g, w), (A, B, kind)

@@ -44,6 +44,39 @@ def test_masked_best_match_with_ties(ratio):
         TM.masked_best_match(_t(dist), _t(cand), 100, ratio))
 
 
+@pytest.mark.parametrize("ratio", [None, 0.75, 0.9])
+def test_hamming_best_match_is_the_unfused_pair(ratio):
+    """The fused entry (hamming_best2, then the gate) returns what
+    masked_best_match returns on the Hamming matrix, in the port and in JAX.
+    Duplicated descriptors tie the best columns; some rows have no candidate."""
+    s = _scene(6)
+    a, b = s["pt_desc"], s["kp_desc"].copy()
+    b[1::2] = b[0::2]
+    cand = s["rng"].random((len(a), len(b))) < 0.1
+    cand[::5] = False
+    jr = JM.masked_best_match(JM.hamming_matrix(jnp.asarray(a), jnp.asarray(b)),
+                              jnp.asarray(cand), 125, ratio)
+    fused = TM.hamming_best_match(_t(a), _t(b), _t(cand), 125, ratio)
+    unfused = TM.masked_best_match(TM.hamming_matrix(_t(a), _t(b)), _t(cand), 125, ratio)
+    _eq(jr, fused)
+    _eq(jr, unfused)
+    if ratio is None:  # a tied best fails every ratio test
+        assert (fused.idx.numpy() >= 0).sum() > 10
+    assert (fused.idx.numpy()[::5] == -1).all()
+
+
+def test_best_match_gate():
+    """Distance gate, then the float ratio test best < ratio * second."""
+    idx = _t(np.array([4, 5, 6, 0], np.int32))
+    best = _t(np.array([40, 40, 101, TM.BIG], np.int32))
+    second = _t(np.array([50, 51, TM.BIG, TM.BIG], np.int32))
+    res = TM.best_match_gate(idx, best, second, 100, 0.8)
+    np.testing.assert_array_equal(res.idx.numpy(), [-1, 5, -1, -1])
+    np.testing.assert_array_equal(res.dist.numpy(), [TM.BIG, 40, TM.BIG, TM.BIG])
+    res = TM.best_match_gate(idx, best, second, 100, None)
+    np.testing.assert_array_equal(res.idx.numpy(), [4, 5, -1, -1])
+
+
 def test_rotation_consistency_tied_bins():
     rng = np.random.default_rng(1)
     n = 90
