@@ -13,7 +13,10 @@ Phases, each printed on its own line:
    `hamming_matrix` at [4096,1024], [1024,1024] and [1000,777];
    `hamming_best2` (index, best and second) at the same shapes under three
    kinds of mask (1% true, all true, and rows with no candidate, one
-   candidate and tied best columns). Times both with CUDA events: per call
+   candidate and tied best columns), and at the shapes and masks the stereo
+   and the monocular path give it: [1024,1024] under a stereo row-band mask
+   and [2048,2048] under the +-100 px window mask of monocular
+   initialization. Times both with CUDA events: per call
    over back-to-back calls (launch cost included), and on the device over
    calls queued behind a spin kernel (launch gaps hidden), warm (the same
    buffers every call, in L2) and cold (more distinct buffers than L2
@@ -29,9 +32,9 @@ Phases, each printed on its own line:
    solve from CUDA events and kernels per solve from a profiler trace;
 4. drives the port's synchronous path, System(cfg, device="cuda")
    .track_rgbd with the mapper inline, over the RGB-D benchmark room
-   (640x480, 1000 features, bf=250, ThDepth=25): a 48-frame orbit and a
-   60-frame sweep; checks the tracked ratio, the metric ATE against the
-   exact ground truth and the keyframe count;
+   (640x480, 1000 features, bf=250, ThDepth=25): the first 24 frames of the
+   48-frame orbit and a 60-frame sweep; checks the tracked ratio, the
+   metric ATE against the exact ground truth and the keyframe count;
    4b. drives the bench's path, System(cfg, device="cuda",
    async_mapping=True).run_sequence(frames, pipelined=True): the 48-frame
    orbit and the 120-frame sweep, with the same gates, at least one local
@@ -40,11 +43,24 @@ Phases, each printed on its own line:
    between tracker and mapper;
    4c. one block dispatch (Tracker._blk_dispatch: uploads, the 6-frame
    device call, the start of the readback) under
-   torch.cuda.set_sync_debug_mode("error"): it must not wait for the card.
+   torch.cuda.set_sync_debug_mode("error"): it must not wait for the card;
+   once for RGB-D and once for stereo;
+5. stereo, the bench's stereo row (48-frame orbit, the right image rendered
+   0.5 m to the right with seed 10000 + i): pipelined with async mapping
+   (at least 90% tracked, metric ATE <= 3 cm, 1 `hamming_matrix` and 2
+   `hamming_best2` a tracked frame), and its first 24 frames synchronously
+   through System.track_stereo;
+6. monocular, the bench's headline row (180-frame orbit, ThDepth=35):
+   pipelined with async mapping (initialized within the first 30% of the
+   frames, at least 90% of the later frames tracked, Sim(3)-aligned ATE <= 8
+   cm, at least 3 keyframes, one local BA solve and one triangulated point,
+   `hamming_best2` launched by the initialization), and its first 40 frames
+   synchronously through System.track_monocular (initialized, OK at the
+   end). Prints the init frames, ms per init attempt and per tracked frame.
 
 The launch counts are set to 0 just before each path and read just after;
 both kernels must have been launched on the synchronous and on the pipelined
-path. Then it prints the kernel table as one JSON line, and as the last line
+path of every sensor. Then it prints the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no "ok" line. Imports nothing of JAX.
 """
@@ -62,8 +78,21 @@ N_WARM = 8  # frames excluded from the per-frame time statistics
 HAMMING_SHAPES = ((4096, 1024), (1024, 1024), (1000, 777))
 BA_CELLS = (("local", 16, 2048, 8192), ("global", 128, 8192, 65536))
 ORBIT_FRAMES = 48
+SYNC_ORBIT_FRAMES = 24       # synchronous RGB-D and stereo: the orbit's start
 SYNC_SWEEP_FRAMES = 60
 SWEEP_FRAMES = 120
+MONO_FRAMES = 180
+SYNC_MONO_FRAMES = 40
+# gates: (least tracked share, ATE limit in m); monocular ATE is
+# Sim(3)-aligned and its share counts the frames after the first OK one.
+# The monocular limit is four times the 2 cm of the 30-frame end-to-end
+# test: every keyframe's local BA leaves the scale free, which keyframes the
+# asynchronous mapper gets depends on timing, and over ten such runs on one
+# H100 the ATE ranged from 0.79 to 3.84 cm (with the mapper inline, where
+# nearly every frame becomes a keyframe, the JAX package reads 3.94 cm on
+# this sequence on a CPU, this package 3.36 cm there and 7.12 cm on the
+# card). A trajectory that collapsed would read 25 cm or more.
+GATES = {"rgbd": (0.9, 0.03), "stereo": (0.9, 0.03), "mono": (0.9, 0.08)}
 KERNELS = ("hamming_matrix", "hamming_best2")
 T = None      # orbslam2_tpu_torch.utils.cuda_timing, imported in main()
 
@@ -117,14 +146,14 @@ def check_hamming_matrix(CK, PH, lib, mma_per_s: float) -> dict:
         n_sets = T.cold_count(4 * A * B)
         row = dict(err=err, shape=f"{A}x{B}",
                    ms=T.time_ms(lambda: CK.hamming_matrix(a, b)),
-                   plain_ms=T.time_ms(lambda: CK.hamming_matrix_ref(a, b), reps=10),
-                   dev=T.queued_ms(lambda: CK.hamming_matrix(a, b), reps=20),
+                   plain_ms=T.time_ms(lambda: CK.hamming_matrix_ref(a, b), reps=5),
+                   dev=T.queued_ms(lambda: CK.hamming_matrix(a, b), reps=10),
                    cold=T.queued_ms(lambda: keep.append(CK.hamming_matrix(a, b)),
                                     reps=n_sets),
                    plain_dev=T.queued_ms(lambda: CK.hamming_matrix_ref(a, b), reps=3),
                    floor=PH.empty_kernel_ms(lib, -(-A // 64), -(-B // 64), 128),
                    library_ms=T.time_ms(lambda: pm1[0] @ pm1[1]),
-                   library_dev=T.queued_ms(lambda: pm1[0] @ pm1[1], reps=20),
+                   library_dev=T.queued_ms(lambda: pm1[0] @ pm1[1], reps=10),
                    **_bound(4 * A * B + 32 * (A + B),
                             2 * -(-A // 16) * -(-B // 8), mma_per_s))
         del keep
@@ -135,44 +164,57 @@ def check_hamming_matrix(CK, PH, lib, mma_per_s: float) -> dict:
     return rows
 
 
+def best2_row(CK, PH, lib, mma_per_s: float, kind: str, a_np, b_np, cand_np,
+              cold: bool, reps: int) -> dict:
+    """One case of `hamming_best2` against its plain version on the card:
+    index, best and second exact, then its times, floor and bound. The
+    bound counts the mma of the 16x64 chunks whose mask is not empty: the
+    others are skipped."""
+    A, B = cand_np.shape
+    a, b, cand = (torch.from_numpy(x).cuda() for x in (a_np, b_np, cand_np))
+    got = CK.hamming_best2(a, b, cand)
+    torch.cuda.synchronize()
+    ref = CK.hamming_best2_ref(a, b, cand)
+    err = max(int((x - y).abs().max().item()) for x, y in zip(got, ref))
+    if err != 0:
+        raise AssertionError(f"hamming_best2 disagrees at [{A},{B}], {kind} "
+                             f"mask: max abs err {err} over idx, best, second")
+    padded = torch.nn.functional.pad(cand, (0, -B % 64, 0, -A % 16))
+    chunks = int(padded.view(-(-A // 16), 16, -(-B // 64), 64)
+                 .any(dim=3).any(dim=1).sum().item())
+    n_sets = T.cold_count(A * B)
+    masks = [cand.clone() for _ in range(n_sets)] if cold else None
+    row = dict(err=err, shape=f"{A}x{B}", density=float(cand_np.mean()),
+               ms=T.time_ms(lambda: CK.hamming_best2(a, b, cand)),
+               plain_ms=T.time_ms(lambda: CK.hamming_best2_ref(a, b, cand),
+                                  reps=max(2, reps // 2)),
+               dev=T.queued_ms(lambda: CK.hamming_best2(a, b, cand), reps=reps),
+               cold=None if masks is None else T.queued_cold_ms(
+                   lambda i: CK.hamming_best2(a, b, masks[i]), n_sets),
+               plain_dev=T.queued_ms(lambda: CK.hamming_best2_ref(a, b, cand), reps=3),
+               floor=PH.empty_kernel_ms(lib, -(-A // 16), 1, 512),
+               unfused_dev=T.queued_ms(lambda: CK.masked_best2(
+                   CK.hamming_matrix(a, b), cand), reps=reps),
+               **_bound(A * B + 32 * (A + B) + 12 * A, 16 * chunks, mma_per_s))
+    print(_times(row, f"phase 3: hamming_best2 [{A},{B}] {kind} mask "
+                      f"({100 * row['density']:.2f}% true) exact on idx, best, "
+                      "second (max_abs_err 0)")
+          + f"; hamming_matrix + plain reduction, device warm "
+          f"{T.fmt_ms(row['unfused_dev'])}", flush=True)
+    return row
+
+
 def check_hamming_best2(CK, PH, lib, mma_per_s: float) -> dict:
-    """`hamming_best2` against its plain version on the card: index, best
-    and second exact at every shape and mask kind, then its times (cold on
-    the sparse mask), floor and bound. The bound counts the mma of the
-    16x64 chunks whose mask is not empty: the others are skipped."""
+    """`hamming_best2` at every shape and mask kind (cold on the sparse
+    mask), and at the stereo and the monocular-initialization case."""
     rows = {}
     for A, B in HAMMING_SHAPES:
         for kind, a_np, b_np, cand_np in PH.best2_cases(A, B, seed=0):
-            a, b, cand = (torch.from_numpy(x).cuda() for x in (a_np, b_np, cand_np))
-            got = CK.hamming_best2(a, b, cand)
-            torch.cuda.synchronize()
-            ref = CK.hamming_best2_ref(a, b, cand)
-            err = max(int((x - y).abs().max().item()) for x, y in zip(got, ref))
-            if err != 0:
-                raise AssertionError(f"hamming_best2 disagrees at [{A},{B}], {kind} "
-                                     f"mask: max abs err {err} over idx, best, second")
-            padded = torch.nn.functional.pad(cand, (0, -B % 64, 0, -A % 16))
-            chunks = int(padded.view(-(-A // 16), 16, -(-B // 64), 64)
-                         .any(dim=3).any(dim=1).sum().item())
-            n_sets = T.cold_count(A * B)
-            masks = [cand.clone() for _ in range(n_sets)] if kind == "sparse" else None
-            row = dict(err=err, shape=f"{A}x{B}", density=float(cand_np.mean()),
-                       ms=T.time_ms(lambda: CK.hamming_best2(a, b, cand)),
-                       plain_ms=T.time_ms(lambda: CK.hamming_best2_ref(a, b, cand), reps=10),
-                       dev=T.queued_ms(lambda: CK.hamming_best2(a, b, cand), reps=20),
-                       cold=None if masks is None else T.queued_cold_ms(
-                           lambda i: CK.hamming_best2(a, b, masks[i]), n_sets),
-                       plain_dev=T.queued_ms(lambda: CK.hamming_best2_ref(a, b, cand), reps=3),
-                       floor=PH.empty_kernel_ms(lib, -(-A // 16), 1, 512),
-                       unfused_dev=T.queued_ms(lambda: CK.masked_best2(
-                           CK.hamming_matrix(a, b), cand), reps=20),
-                       **_bound(A * B + 32 * (A + B) + 12 * A, 16 * chunks, mma_per_s))
-            print(_times(row, f"phase 3: hamming_best2 [{A},{B}] {kind} mask "
-                              f"({100 * row['density']:.2f}% true) exact on idx, best, "
-                              "second (max_abs_err 0)")
-                  + f"; hamming_matrix + plain reduction, device warm "
-                  f"{T.fmt_ms(row['unfused_dev'])}", flush=True)
-            rows[(A, B, kind)] = row
+            rows[(A, B, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np, b_np,
+                                           cand_np, cold=kind == "sparse", reps=10)
+    for kind, a_np, b_np, cand_np in PH.best2_path_cases(seed=0):
+        rows[(*cand_np.shape, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np,
+                                                 b_np, cand_np, cold=True, reps=10)
     return rows
 
 
@@ -210,46 +252,86 @@ def check_ba(BA) -> None:
               f"{dev_ms:.2f} ms device time per solve (profiler)", flush=True)
 
 
-def render_frames(synth, scene, gt):
-    return [(np.clip(synth.render_room(scene, gt[i], seed=i), 0, 255)
-             .astype(np.uint8), synth.depth_room(scene, gt[i]))
-            for i in range(len(gt))]
+_RENDERED: dict = {}
 
 
-def run_sequence(P, CK, synth, evaluation, name: str, gt: np.ndarray, scene,
-                 cfg, pipelined: bool):
-    """Track a rendered sequence on the card: synchronously through
-    System.track_rgbd (mapper inline), or pipelined through
-    System(async_mapping=True).run_sequence. Counts the path's launches of
-    both Hamming kernels from 0."""
-    frames = render_frames(synth, scene, gt)
+def render_sequence(synth, scene, name: str, gt: np.ndarray, sensor: str):
+    """The sequence items (timestamp, {"image", "depth"?, "right"?}) of one
+    trajectory for one sensor, as bench.py renders them (the right image from
+    the pose shifted 0.5 m along the camera's x axis, seed 10000 + i).
+    Rendered once per (trajectory, sensor) with 8 threads; a shorter run of
+    the same trajectory takes its first frames."""
+    key = (name, len(gt), sensor)
+    if key in _RENDERED:
+        return _RENDERED[key]
+
+    def u8(pose, seed):
+        return np.clip(synth.render_room(scene, pose, seed=seed), 0, 255).astype(np.uint8)
+
+    def item(i):
+        data = {"image": u8(gt[i], i)}
+        if sensor == "rgbd":
+            data["depth"] = synth.depth_room(scene, gt[i])
+        elif sensor == "stereo":
+            right = gt[i].copy()
+            right[:, 3] = right[:, 3] - np.array([0.5, 0, 0], np.float32)
+            data["right"] = u8(right, 10_000 + i)
+        return i / 30.0, data
+
+    with ThreadPoolExecutor(8) as pool:
+        _RENDERED[key] = list(pool.map(item, range(len(gt))))
+    return _RENDERED[key]
+
+
+def run_sequence(P, CK, evaluation, tag: str, name: str, items, gt: np.ndarray,
+                 cfg, sensor: str, pipelined: bool, whole: bool = True):
+    """Track a rendered sequence on the card: synchronously through the
+    sensor's entry point (System.track_rgbd / track_stereo / track_monocular,
+    mapper inline), or pipelined through System(async_mapping=True)
+    .run_sequence. Counts the path's launches of both Hamming kernels from 0
+    and applies the sensor's gates; a run that is not the `whole` sequence
+    (the start of the monocular orbit) must initialize and end OK, and is
+    not held to the 30% and the ATE gate."""
+    n = len(items)
     slam = P.System(cfg, device="cuda", async_mapping=pipelined)
+    entry = {"rgbd": lambda ts, d: slam.track_rgbd(d["image"], d["depth"], ts),
+             "stereo": lambda ts, d: slam.track_stereo(d["image"], d["right"], ts),
+             "mono": lambda ts, d: slam.track_monocular(d["image"], ts)}[sensor]
     CK.reset_launch_counts()
+    t0 = time.perf_counter()
     if pipelined:
-        tracked = slam.run_sequence(
-            ((i / 30.0, {"image": img, "depth": d}) for i, (img, d) in enumerate(frames)),
-            pipelined=True)
+        tracked = slam.run_sequence(iter(items), pipelined=True)
         slam.shutdown()
     else:
-        tracked = sum(slam.track_rgbd(img, d, i / 30.0) is not None
-                      for i, (img, d) in enumerate(frames))
+        tracked = sum(entry(ts, d) is not None for ts, d in items)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = {w.__name__: dict(w.launches_by)
                 for w in (CK.hamming_matrix, CK.hamming_best2)}
+    recs = slam.metrics.records
+    first_ok = next((i for i, r in enumerate(recs) if r.state == "OK"), n)
     ts, est = slam.tracker.trajectory()
     fids = np.round(np.asarray(ts) * 30).astype(int)
-    ate = evaluation.ate_rmse(evaluation.camera_centers(est),
-                              evaluation.camera_centers(gt[fids]),
-                              with_scale=False)
-    ms = np.array([r.track_ms for r in slam.metrics.records])[N_WARM:]
+    ate = (evaluation.ate_rmse(evaluation.camera_centers(est),
+                               evaluation.camera_centers(gt[fids]),
+                               with_scale=sensor == "mono")
+           if len(est) >= 3 else float("nan"))
+    # the frames after initialization, less the warm ones
+    ms = np.array([r.track_ms for r in recs])[first_ok + 1:][N_WARM:]
     kfs = slam.map.n_keyframes
     lm = slam.local_mapper
-    tag = "phase 4b" if pipelined else "phase 4"
-    print(f"{tag}: {name}: tracked {tracked}/{len(gt)}, metric ATE "
-          f"{ate * 100:.3f} cm, keyframes {kfs}, points {slam.map.n_points}, "
-          f"ms/frame after {N_WARM} warm frames: median {np.median(ms):.2f} "
-          f"mean {ms.mean():.2f} p90 {np.percentile(ms, 90):.2f}; kernel "
-          f"launches {launches}", flush=True)
+    kind = "Sim(3)-aligned" if sensor == "mono" else "metric"
+    print(f"{tag}: {name}: tracked {tracked}/{n} ({n - first_ok} from the first "
+          f"OK frame on), {kind} ATE {ate * 100:.3f} cm, keyframes {kfs}, points "
+          f"{slam.map.n_points}, ms/frame after {N_WARM} warm tracked frames: "
+          f"median {np.median(ms):.2f} mean {ms.mean():.2f} p90 "
+          f"{np.percentile(ms, 90):.2f}; {seconds:.1f} s in all; kernel launches "
+          f"{launches}", flush=True)
+    if sensor == "mono":
+        init_ms = np.array([r.track_ms for r in recs])[:first_ok + 1]
+        print(f"{tag}: {name}: {first_ok} init frames of {n}; ms per init attempt "
+              f"(all {len(init_ms)}): median {np.median(init_ms):.2f} mean "
+              f"{init_ms.mean():.2f} max {init_ms.max():.2f}", flush=True)
     if lm.stage_ms:
         stages = {s: np.array([d[s] for d in lm.stage_ms]) for s in lm.stage_ms[0]
                   if s != "kf"}
@@ -259,25 +341,36 @@ def run_sequence(P, CK, synth, evaluation, name: str, gt: np.ndarray, scene,
                   for s, v in stages.items())
               + "; ba_solve ms: " + ", ".join(f"{x:.1f}" for x in lm.ba_solve_ms),
               flush=True)
-    if tracked < 0.9 * len(gt) or not ate <= 0.03:
-        raise AssertionError(f"{tag} {name}: tracked {tracked}/{len(gt)}, "
-                             f"ATE {ate * 100:.3f} cm (gates: 90%, 3 cm)")
-    if name == "sweep" and kfs < 3:
-        raise AssertionError(f"{tag} sweep: {kfs} keyframes (gate: 3)")
-    return dict(launches=launches, counters=dict(lm.counters), kfs=kfs)
+    share, ate_limit = GATES[sensor]
+    if first_ok > (0.3 * n if whole else n - 2):
+        raise AssertionError(f"{tag} {name}: first OK frame {first_ok} of {n} "
+                             "(gate: within the first 30%)")
+    if tracked < share * (n - first_ok) or not (ate <= ate_limit or not whole):
+        raise AssertionError(
+            f"{tag} {name}: tracked {tracked}/{n - first_ok}, ATE {ate * 100:.3f} cm "
+            f"(gates: {100 * share:.0f}%, {100 * ate_limit:.0f} cm)")
+    if slam.tracker.state.name != "OK":
+        raise AssertionError(f"{tag} {name}: state {slam.tracker.state.name} at the end")
+    for kernel in KERNELS:
+        if launches[kernel].get("tracker", 0) <= 0:
+            raise AssertionError(f"{tag} {name}: the tracker never launched {kernel}")
+    return dict(launches=launches, counters=dict(lm.counters), kfs=kfs,
+                tracked=tracked, first_ok=first_ok)
 
 
-def check_block_sync_free(P, synth, scene, cfg) -> None:
+def check_block_sync_free(P, items, cfg, sensor: str) -> None:
     """One block dispatch under sync debug mode "error": uploads, the
     device call of 6 frames and the start of the readback must not wait for
     the card. The frames before it warm the device constants and leave the
     chain on the device."""
-    gt = synth.orbit_trajectory(ORBIT_FRAMES)
-    frames = render_frames(synth, scene, gt[:9])
     slam = P.System(cfg, device="cuda")
-    for i in range(3):
-        slam.track_rgbd(*frames[i], i / 30.0)
-    chunk = [(i / 30.0, frames[i][0], frames[i][1]) for i in range(3, 9)]
+    gray = slam._gray
+    for ts, d in items[:3]:
+        slam.tracker.process_image(
+            gray(d["image"]), ts, depth_map=d.get("depth"),
+            right_img=gray(d["right"]) if "right" in d else None)
+    chunk = [(ts, gray(d["image"]), d.get("depth"),
+              gray(d["right"]) if "right" in d else None) for ts, d in items[3:9]]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -288,9 +381,9 @@ def check_block_sync_free(P, synth, scene, cfg) -> None:
     poses = [pose for _, pose in slam.tracker._blk_finish(ctx)]
     n_ok = sum(p is not None for p in poses)
     if n_ok != len(chunk):
-        raise AssertionError(f"sync-free block: tracked {n_ok}/{len(chunk)}")
-    print(f"phase 4c: one 6-frame block dispatch ran under sync debug mode "
-          f"'error' without a host sync; its frames tracked {n_ok}/{len(chunk)}",
+        raise AssertionError(f"sync-free {sensor} block: tracked {n_ok}/{len(chunk)}")
+    print(f"phase 4c: one 6-frame {sensor} block dispatch ran under sync debug "
+          f"mode 'error' without a host sync; its frames tracked {n_ok}/{len(chunk)}",
           flush=True)
 
 
@@ -306,7 +399,7 @@ def main() -> int:
     from orbslam2_tpu_torch.ops import cuda_kernels as CK
     from orbslam2_tpu_torch.utils import cuda_timing, evaluation
     from orbslam2_tpu_torch.utils import probe_hamming as PH
-    from orbslam2_tpu_torch.utils.profile_frame import bench_rgbd_config
+    from orbslam2_tpu_torch.utils.profile_frame import bench_config
 
     global T
     T = cuda_timing
@@ -335,17 +428,59 @@ def main() -> int:
     best2 = check_hamming_best2(CK, PH, lib, mma_per_s)
     check_ba(BA)
 
-    # the RGB-D configuration of bench.py: room scene, bf=250, ThDepth=25
+    # the configurations of bench.py's three rows on the room scene
     scene = synth.make_room(seed=0)
-    cfg = bench_rgbd_config(scene)
-    orbit, sweep = synth.orbit_trajectory(ORBIT_FRAMES), synth.sweep_trajectory
-    args = (P, CK, synth, evaluation)
-    sync = [run_sequence(*args, "orbit", orbit, scene, cfg, pipelined=False),
-            run_sequence(*args, "sweep", sweep(SYNC_SWEEP_FRAMES), scene, cfg,
-                         pipelined=False)]
-    piped = [run_sequence(*args, "orbit", orbit, scene, cfg, pipelined=True),
-             run_sequence(*args, "sweep", sweep(SWEEP_FRAMES), scene, cfg,
-                          pipelined=True)]
+    cfgs = {"rgbd": bench_config(scene, P.Sensor.RGBD),
+            "stereo": bench_config(scene, P.Sensor.STEREO),
+            "mono": bench_config(scene, P.Sensor.MONOCULAR)}
+    orbit = synth.orbit_trajectory(ORBIT_FRAMES)
+    mono_orbit = synth.orbit_trajectory(MONO_FRAMES)
+
+    def run(tag, name, gt, sensor, pipelined, n=None):
+        items = render_sequence(synth, scene, name, gt, sensor)[:n]
+        return run_sequence(P, CK, evaluation, tag, f"{sensor}-{name}-{len(items)}",
+                            items, gt, cfgs[sensor], sensor, pipelined,
+                            whole=sensor != "mono" or n is None)
+
+    sweep = synth.sweep_trajectory
+    sync = [run("phase 4", "orbit", orbit, "rgbd", False, SYNC_ORBIT_FRAMES),
+            run("phase 4", "sweep", sweep(SYNC_SWEEP_FRAMES), "rgbd", False)]
+    piped = [run("phase 4b", "orbit", orbit, "rgbd", True),
+             run("phase 4b", "sweep", sweep(SWEEP_FRAMES), "rgbd", True)]
+    for runs in (sync, piped):
+        if runs[1]["kfs"] < 3:
+            raise AssertionError(f"RGB-D sweep: {runs[1]['kfs']} keyframes (gate: 3)")
+    if piped[1]["counters"]["ba_solves"] < 1:
+        raise AssertionError("pipelined sweep: no local BA solve")
+    if piped[1]["launches"]["hamming_best2"].get("mapper", 0) <= 0:
+        raise AssertionError("pipelined sweep: the mapper never launched hamming_best2")
+    check_block_sync_free(P, render_sequence(synth, scene, "orbit", orbit, "rgbd"),
+                          cfgs["rgbd"], "rgbd")
+    check_block_sync_free(P, render_sequence(synth, scene, "orbit", orbit, "stereo"),
+                          cfgs["stereo"], "stereo")
+
+    # phase 5, stereo: every tracked frame runs stereo_match (hamming_best2
+    # under the row-band mask) beside the two matchers of the RGB-D frame
+    stereo = [run("phase 5", "orbit", orbit, "stereo", True),
+              run("phase 5", "orbit", orbit, "stereo", False, SYNC_ORBIT_FRAMES)]
+    for r in stereo:
+        a = r["launches"]["hamming_matrix"]["tracker"]
+        b = r["launches"]["hamming_best2"]["tracker"]
+        if a < r["tracked"] - 1 or b < 2 * a:
+            raise AssertionError(f"stereo: {a} hamming_matrix and {b} hamming_best2 "
+                                 f"launches by the tracker over {r['tracked']} tracked "
+                                 "frames (gate: 1 and 2 a tracked frame)")
+    # phase 6, monocular: initialization launches hamming_best2 under the
+    # +-100 px window mask, counted apart from the tracker
+    mono = [run("phase 6", "orbit", mono_orbit, "mono", True),
+            run("phase 6", "orbit", mono_orbit, "mono", False, SYNC_MONO_FRAMES)]
+    for r in mono:
+        if r["launches"]["hamming_best2"].get("mono_init", 0) <= 0:
+            raise AssertionError("mono: the initialization never launched hamming_best2")
+    c = mono[0]["counters"]
+    if mono[0]["kfs"] < 3 or c["ba_solves"] < 1 or c["points_created"] <= 0:
+        raise AssertionError(f"pipelined mono: {mono[0]['kfs']} keyframes, counters {c} "
+                             "(gates: 3 keyframes, 1 BA solve, 1 triangulated point)")
 
     def total(runs, kernel: str) -> dict:
         by = {}
@@ -354,25 +489,20 @@ def main() -> int:
                 by[who] = by.get(who, 0) + n
         return by
 
-    # motion_model_core launches hamming_matrix, local_points_core and the
-    # mapper's matchers hamming_best2: both on both paths
-    for what, runs in (("synchronous", sync), ("pipelined", piped)):
-        for kernel in KERNELS:
-            if total(runs, kernel).get("tracker", 0) <= 0:
-                raise AssertionError(f"the {what} path's tracker never launched {kernel}")
-    if piped[1]["counters"]["ba_solves"] < 1:
-        raise AssertionError("pipelined sweep: no local BA solve")
-    if piped[1]["launches"]["hamming_best2"].get("mapper", 0) <= 0:
-        raise AssertionError("pipelined sweep: the mapper never launched hamming_best2")
-    launches_by = {kernel: total(piped, kernel) for kernel in KERNELS}
-    print(f"phase 4b: kernel launches on the pipelined path: {launches_by}; "
-          f"synchronous path: {({k: total(sync, k) for k in KERNELS})}", flush=True)
-    check_block_sync_free(P, synth, scene, cfg)
+    # the main path is the bench's entry point, pipelined with async
+    # mapping, once per sensor row (and the RGB-D sweep, which maps)
+    main_path = piped + [stereo[0], mono[0]]
+    others = sync + [stereo[1], mono[1]]
+    launches_by = {kernel: total(main_path, kernel) for kernel in KERNELS}
+    print(f"phase 6: kernel launches on the pipelined paths of all sensors: "
+          f"{launches_by}; synchronous paths: "
+          f"{({k: total(others, k) for k in KERNELS})}", flush=True)
 
     # every number in these lines is measured in this run, at the shape the
     # main path gives the kernel (named as a string): motion_model_core's
     # [1024,1024] for hamming_matrix, local_points_core's [4096,1024] for
-    # hamming_best2 (on the 1% mask)
+    # hamming_best2 (on the 1% mask); its stereo and init cases follow under
+    # "other_shapes"
     def entry(name: str, source: str, row: dict, rows: dict, library_ms) -> dict:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": "orbslam2_tpu/ops/pallas_kernels.py:43",
@@ -386,12 +516,17 @@ def main() -> int:
                 "library_ms": library_ms, "shape": row["shape"]}
 
     row_a, row_b = ham[(1024, 1024)], best2[(4096, 1024, "sparse")]
+    entry_b = entry("hamming_best2", "orbslam2_tpu_torch/csrc/hamming_best2.cu", row_b,
+                    best2, None)  # no single PyTorch call computes it
+    entry_b["other_shapes"] = [
+        {"mask": kind, "shape": r["shape"], "density": r["density"], "ms": r["ms"],
+         "device_ms": r["dev"], "cold_device_ms": r["cold"], "floor_ms": r["floor"],
+         "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"]}
+        for (_, _, kind), r in best2.items() if kind in ("stereo-band", "init-window")]
     print(json.dumps({"kernels": [
         entry("hamming_matrix", "orbslam2_tpu_torch/csrc/hamming.cu", row_a, ham,
-              row_a["library_ms"]),
-        # no single PyTorch call computes the masked best and second-best
-        entry("hamming_best2", "orbslam2_tpu_torch/csrc/hamming_best2.cu", row_b,
-              best2, None)]}), flush=True)
+              row_a["library_ms"]), entry_b]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

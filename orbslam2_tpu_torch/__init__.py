@@ -5,10 +5,11 @@ module paths and runs on PyTorch, with the TPU kernel rewritten by hand for
 NVIDIA Hopper in two forms (csrc/hamming.cu, csrc/hamming_best2.cu). It
 never imports jax or orbslam2_tpu.
 
-So far the port covers RGB-D tracking with local mapping:
-System(cfg, device="cuda").track_rgbd(...), or pipelined with the mapper on
-its own thread, System(cfg, device="cuda", async_mapping=True)
-.run_sequence(frames, pipelined=True). See ROADMAP.md for the rest.
+So far the port covers monocular, stereo and RGB-D tracking with local
+mapping: System(cfg, device="cuda").track_monocular(...) / track_stereo(...)
+/ track_rgbd(...), or pipelined with the mapper on its own thread,
+System(cfg, device="cuda", async_mapping=True).run_sequence(frames,
+pipelined=True). See ROADMAP.md for the rest.
 """
 import torch as _torch
 

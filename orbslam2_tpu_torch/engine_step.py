@@ -1,6 +1,6 @@
 """The fused per-frame tracking step.
 
-Counterpart of orbslam2_tpu/engine_step.py. Three entry points:
+Counterpart of orbslam2_tpu/engine_step.py. Four entry points:
 
 - `tracking_step`: the minimal step (extract -> project+match -> pose LM).
 - `track_frame_full`: the per-frame hot path of the reference's Track()
@@ -11,6 +11,8 @@ Counterpart of orbslam2_tpu/engine_step.py. Three entry points:
 - `track_frames_block`: K frames in a row, the pose/velocity recurrence
   and the binding chain carried from one `_frame_core` to the next as
   tensors (the block driver, tracking.Tracker.run_blocked).
+- `mono_init_step`: one monocular-initialization attempt (extraction at the
+  doubled budget, the windowed init match, refinement, the two-view RANSAC).
 
 Nothing in `_frame_core` or `track_frames_block` reads a device value
 back: every data-dependent choice is a `torch.where`, so a block costs one
@@ -31,6 +33,8 @@ from .ops import features as F
 from .ops import matching as M
 from .ops import pose_opt as PO
 from .ops import refine as RF
+from .ops import stereo as ST
+from .ops import twoview as TV
 
 
 def _scatter_drop(n: int, tgt: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -175,7 +179,8 @@ def track_frame_full(img, aux, T_pred, T_last,
                      ) -> TrackFrameOut:
     """One tracked frame, fused (see module docstring).
 
-    aux: depth map [H,W] (rgbd), or img (mono, ignored). last_*: previous
+    aux: depth map [H,W] (rgbd), the right image (stereo), or img (mono,
+    ignored). last_*: previous
     frame's per-feature tensors. m_*: the map-point device mirror (the full
     point table, gathered by index). lp_ids/lp_mask: the local-map slice
     (host-selected from covisibility). tmp_enable: bool tensor — include
@@ -214,13 +219,15 @@ def _frame_core(img, aux, T_pred, T_last,
     if sensor == "rgbd":
         depth, ur = _rgbd_depth(aux * depth_factor, feats.xy, xy_und[:, 0],
                                 cam, H, W)
-    elif sensor == "mono":
+    elif sensor == "stereo":
+        feats_r = F.extract_orb(aux, params, H, W)
+        ur, depth = ST.stereo_match(
+            feats.xy, feats.octave, feats.desc, feats.valid,
+            feats_r.xy, feats_r.octave, feats_r.desc, feats_r.valid,
+            sf, cam.bf, cam.fx)
+    else:  # mono
         depth = torch.full((feats.xy.shape[0],), -1.0, device=dev)
         ur = torch.full((feats.xy.shape[0],), -1.0, device=dev)
-    else:
-        raise NotImplementedError(
-            "stereo frames are not ported yet (ROADMAP.md queue 1, stereo: "
-            "ops/stereo.stereo_match)")
     ur0 = ur
 
     # ---- stage 2: motion-model candidates (rows = last-frame slots) ----
@@ -361,7 +368,8 @@ def track_frames_block(imgs, auxs, T_last, T_prev,
     mirror are frozen for the block (the host applies map updates between
     blocks, the lag the reference's concurrent LocalMapping has).
 
-    imgs: [K, H, W]; auxs: [K, H, W] depth maps (rgbd). Returns (outs, chain):
+    imgs: [K, H, W]; auxs: [K, H, W] depth maps (rgbd), right images
+    (stereo) or imgs again (mono). Returns (outs, chain):
     outs is a TrackFrameOut of [K, ...] tensors, chain the tuple of tensors
     the next block takes as (T_last, ..., last_depth). The carried patch
     stays u8."""
@@ -383,3 +391,88 @@ def track_frames_block(imgs, auxs, T_last, T_prev,
                  out.fmat[:, 8])
         outs.append(out)
     return TrackFrameOut(*(torch.stack(f) for f in zip(*outs))), chain
+
+
+class MonoInitOut(NamedTuple):
+    """Result of mono_init_step, all on the device.
+
+    hdr [16] f32: n_valid, n_matches, success, n_good, R (rows flattened,
+    9), t (3): the only tensor the host reads per attempt; the rest is read
+    once, when initialization succeeds.
+    idx/good/X/xy2*/ref_ok: per REFERENCE-frame row (the match layout of
+    search_for_initialization). fmat/imat/desc/patch: the current frame's
+    features in TrackFrameOut's packing, so the host decodes both alike.
+    """
+
+    hdr: torch.Tensor
+    idx: torch.Tensor      # [N] int32: ref row -> current feature (-1)
+    good: torch.Tensor     # [N] bool: triangulated inlier
+    X: torch.Tensor        # [N, 3] points in the reference camera's frame
+    xy2: torch.Tensor      # [N, 2] refined undistorted position of the match
+    xy2_raw: torch.Tensor  # [N, 2] refined raw position
+    ref_ok: torch.Tensor   # [N] bool: the match exists and was refined
+    fmat: torch.Tensor     # [N, 11] (TrackFrameOut layout; depth, ur = -1)
+    imat: torch.Tensor     # [N, 5]
+    desc: torch.Tensor     # [N, 8] int32
+    patch: torch.Tensor    # [N, 15, 15] u8
+
+
+def mono_init_step(img, ref_xy, ref_desc, ref_valid, ref_angle, ref_patch, sf,
+                   params: OrbParams, cam, *, generator=None, idx_H=None,
+                   idx_F=None) -> MonoInitOut:
+    """One monocular-initialization attempt (MonocularInitialization,
+    src/Tracking.cpp:729-832): extraction, the windowed init match against
+    the reference frame, feature-metric refinement of the matched windows
+    against the reference frame's templates, and the 200-hypothesis H + F
+    two-view RANSAC. The host reads the 16-float header to drive its state
+    machine and the large tensors only on success.
+
+    ref_*: the reference frame's feature tensors (chained from ITS
+    mono_init_step call, never uploaded again). Without a reference yet the
+    caller passes zeros with ref_valid all False: the match count comes back
+    0 and the host uses only n_valid. generator / idx_H / idx_F: the minimal
+    sets of ops/twoview.initialize_two_view."""
+    H, W = cam.height, cam.width
+    dev = img.device
+    feats = F.extract_orb(img, params, H, W)
+    xy_und = cam_mod.undistort_pixels(cam, feats.xy)
+    res = M.search_for_initialization(
+        ref_xy, ref_desc, ref_valid, ref_angle,
+        xy_und, feats.desc, feats.valid, feats.angle)
+    idx = res.idx
+    m = idx >= 0
+    idc = idx.clamp(min=0).long()
+
+    tpl = RF.template_of(ref_patch.to(torch.float32))
+    delta, okr = RF.refine_offsets(feats.patch[idc], tpl, m)
+    okr = okr & m
+    sf_c = sf[feats.octave[idc].clamp(0, sf.shape[0] - 1).long()]
+    xy2_raw = feats.xy[idc] + delta * (sf_c * okr)[:, None]
+    xy2 = torch.where(okr[:, None], cam_mod.undistort_pixels(cam, xy2_raw),
+                      xy_und[idc])
+    xy2 = torch.where(m[:, None], xy2, 0.0)
+
+    K3 = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
+                       [0.0, 0.0, 1.0]], dtype=torch.float32, device=dev)
+    tv = TV.initialize_two_view(ref_xy, xy2, m, K3, idx_H=idx_H, idx_F=idx_F,
+                                generator=generator)
+
+    hdr = torch.cat([
+        torch.stack([feats.valid.sum(), m.sum(), tv.success.sum(),
+                     (tv.good & m).sum()]).to(torch.float32),
+        tv.R.reshape(-1), tv.t])
+
+    N = feats.xy.shape[0]
+    neg1 = torch.full((N, 1), -1.0, dtype=torch.float32, device=dev)
+    fmat = torch.cat([
+        xy_und, feats.xy, xy_und, neg1, neg1, neg1,
+        feats.angle[:, None], feats.response[:, None]], dim=1)
+    # the refined flag per CURRENT feature (scattered from the ref rows)
+    refined_cur = _scatter_drop(N, torch.where(okr, idx, N), torch.ones_like(idx))
+    none = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    imat = torch.stack([feats.octave, none, none, refined_cur.clamp(min=0),
+                        feats.valid.to(torch.int32)], dim=1)
+    return MonoInitOut(
+        hdr=hdr, idx=idx, good=tv.good, X=tv.points3d, xy2=xy2,
+        xy2_raw=xy2_raw, ref_ok=okr, fmat=fmat, imat=imat, desc=feats.desc,
+        patch=torch.clamp(torch.round(feats.patch), 0, 255).to(torch.uint8))

@@ -1,13 +1,16 @@
 """Per-frame feature container and construction.
 
-Counterpart of orbslam2_tpu/frontend/frame.py (src/Frame.cpp), RGB-D and
-monocular: construction runs the extraction on the device, reads the
-features back, undistorts keypoints and, for RGB-D, assigns depths on the
-host. Stereo frames come with the stereo port (ROADMAP.md queue 1).
+Counterpart of orbslam2_tpu/frontend/frame.py and frontend/stereo.py
+(src/Frame.cpp), all three sensors: construction runs the extraction on the
+device, reads the features back and undistorts keypoints. RGB-D depths are
+assigned on the host; a stereo frame extracts the right image too and
+matches along rows on the device (ops/stereo.stereo_match; inputs must be
+rectified). The JAX package's sub-pixel SAD refinement
+(`stereo_depths_refined`) is superseded there and not ported.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -15,6 +18,8 @@ import torch
 from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..ops import features as F
+from ..ops import stereo as ST
+from ..utils.device import upload
 
 
 @dataclass
@@ -65,25 +70,32 @@ class Frame:
 
 
 class FrameBuilder:
-    """Builds Frames by running the extraction on `device`."""
+    """Builds Frames by running the extraction on `device`. One instance
+    per extractor configuration: monocular initialization has its own, with
+    twice the feature budget (src/Tracking.cpp:141-149)."""
 
-    def __init__(self, cfg: SlamConfig, device: torch.device):
+    def __init__(self, cfg: SlamConfig, device: torch.device,
+                 n_features: int | None = None):
         self.cfg = cfg
         self.device = device
-        self.orb = cfg.orb
+        self.orb = (cfg.orb if n_features is None
+                    else replace(cfg.orb, n_features=n_features))
         self._next_id = 0
 
     def build(self, img: np.ndarray, timestamp: float,
               depth_map: np.ndarray | None = None,
               right_img: np.ndarray | None = None) -> Frame:
-        if right_img is not None:
-            raise NotImplementedError(
-                "stereo frames are not ported yet (ROADMAP.md queue 1, "
-                "stereo: ops/stereo.stereo_match)")
         h, w = img.shape
-        feats = F.extract_orb(torch.from_numpy(np.ascontiguousarray(img)).to(self.device),
-                              self.orb, h, w)
+        feats = F.extract_orb(upload(img, self.device), self.orb, h, w)
         und_t = cam_mod.undistort_pixels(self.cfg.camera, feats.xy)
+        stereo = None
+        if right_img is not None:
+            feats_r = F.extract_orb(upload(right_img, self.device), self.orb, h, w)
+            cam = self.cfg.camera
+            stereo = ST.stereo_match(
+                feats.xy, feats.octave, feats.desc, feats.valid,
+                feats_r.xy, feats_r.octave, feats_r.desc, feats_r.valid,
+                upload(F.scale_factors(self.orb), self.device), cam.bf, cam.fx)
         feats = [t.cpu().numpy() for t in feats]
         xy_raw, response, angle, octave, desc, valid, patch = feats
         # a copy: without distortion und_t IS feats.xy, and on the CPU
@@ -92,7 +104,9 @@ class FrameBuilder:
         n = xy_raw.shape[0]
         depth = np.full(n, -1.0, np.float32)
         ur = np.full(n, -1.0, np.float32)
-        if depth_map is not None:
+        if stereo is not None:
+            ur, depth = (t.cpu().numpy() for t in stereo)
+        elif depth_map is not None:
             depth, ur = self._rgbd_depth(depth_map, xy_raw, und, h, w)
         frame = Frame(
             frame_id=self._next_id, timestamp=timestamp, xy=und, xy_raw=xy_raw,

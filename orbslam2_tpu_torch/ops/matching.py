@@ -6,8 +6,9 @@ best and second-best Hamming distance of each row under it, and the
 reference's gating rules on the resulting [A] vectors:
 
 - DescriptorDistance (:1901)      -> the CUDA kernels of ops/cuda_kernels.py.
-  `hamming_best_match` (search_by_projection here; match_descriptors_ratio
-  and epipolar_match_core in frontend/matcher.py) runs on the fused kernel
+  `hamming_best_match` (search_by_projection and search_for_initialization
+  here; ops/stereo.stereo_match; match_descriptors_ratio and
+  epipolar_match_core in frontend/matcher.py) runs on the fused kernel
   `hamming_best2`: the [A, B] distances are never written. Only
   frontend/matcher.py motion_model_core takes the matrix itself
   (`hamming_matrix`) and reduces it twice, under two masks, with
@@ -15,6 +16,7 @@ reference's gating rules on the resulting [A] vectors:
 - TH_HIGH=100 / TH_LOW=50 / HISTO_LENGTH=30 constants (:37-39)
 - nn-ratio test + rotation-histogram consistency (ComputeThreeMaxima, :1854)
 - SearchByProjection (:63, :1564) -> `search_by_projection`
+- SearchForInitialization (:499) -> `search_for_initialization`
 
 Nothing here reads a device value back to the host: selections are
 `torch.where`, histograms and scatter-mins are scatter ops.
@@ -32,6 +34,7 @@ from .cuda_kernels import (BIG, hamming_best2, hamming_matrix,  # noqa: F401
 TH_HIGH = 100
 TH_LOW = 50
 HISTO_LENGTH = 30
+INIT_WINDOW = 100.0  # search window of the monocular-initialization match, px
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -95,6 +98,19 @@ def hamming_best_match(desc_a: torch.Tensor, desc_b: torch.Tensor,
     """masked_best_match(hamming_matrix(desc_a, desc_b), ...) on the fused
     kernel: the same result without the [A, B] distances in memory."""
     return best_match_gate(*hamming_best2(desc_a, desc_b, cand_mask), max_dist, ratio)
+
+
+def search_for_initialization(xy_a, desc_a, valid_a, angle_a,
+                              xy_b, desc_b, valid_b, angle_b) -> MatchResult:
+    """Monocular-initialization windowed matching
+    (ORBmatcher::SearchForInitialization, src/ORBmatcher.cpp:499-630): each
+    feature of frame a against the features of frame b within +-100 pixels,
+    TH_LOW and a 0.9 ratio test, then the rotation histogram."""
+    dxy = xy_a[:, None, :] - xy_b[None, :, :]
+    in_window = (dxy[..., 0].abs() < INIT_WINDOW) & (dxy[..., 1].abs() < INIT_WINDOW)
+    cand = in_window & valid_a[:, None] & valid_b[None, :]
+    res = hamming_best_match(desc_a, desc_b, cand, TH_LOW, 0.9)
+    return _select(rotation_consistency(angle_a, angle_b, res.idx, res.valid), res)
 
 
 def search_by_projection(proj_uv, pred_level, radius, pt_desc, pt_valid,

@@ -1,10 +1,12 @@
 """System facade: the public entry point of the port.
 
-Counterpart of orbslam2_tpu/system.py (src/System.cpp). This step of the port
-builds the map, the RGB-D tracker and the local mapper, and exposes the
+Counterpart of orbslam2_tpu/system.py (src/System.cpp). It builds the map,
+the tracker of the configured sensor and the local mapper, and exposes the
 reference's API surface (include/System.h:63-110):
 
     System(cfg, device="cuda", async_mapping=False)
+    track_monocular(img, t) -> Tcw [3,4] or None
+    track_stereo(left, right, t) -> Tcw [3,4] or None
     track_rgbd(rgb, depth, t) -> Tcw [3,4] or None
     run_sequence(frames, pipelined=True)
     save_trajectory_tum(path)
@@ -19,9 +21,8 @@ mirror is refreshed from the host map under the map lock, and the mapper's
 keyframe cache (local_mapping.KFStore) is its own.
 
 What the port does not do yet raises NotImplementedError naming the
-ROADMAP.md item that brings it: monocular and stereo tracking, the keyframe
-database, relocalization and localization mode, loop closing, map
-save/load.
+ROADMAP.md item that brings it: the keyframe database, relocalization and
+localization mode, loop closing, map save/load.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from .io import trajectory as traj_io
 from .local_mapping import LocalMapper
 from .map.mapstate import MapState
 from .ops.features import padded_capacity
-from .tracking import Tracker, rgbd_item
+from .tracking import Tracker, sequence_item
 from .utils.metrics import MetricsLog
 
 
@@ -62,7 +63,10 @@ class System:
             self._worker.start()
 
     def _build(self):
-        self.map = MapState(self.cfg, padded_capacity(self.cfg.orb.n_features))
+        # keyframes are as wide as the widest frame: monocular
+        # initialization extracts twice the feature budget
+        wide = 2 if self.cfg.sensor == Sensor.MONOCULAR else 1
+        self.map = MapState(self.cfg, padded_capacity(self.cfg.orb.n_features * wide))
         self.local_mapper = LocalMapper(self.cfg, self.map, device=self.device)
         self.tracker = Tracker(self.cfg, self.map,
                                self._mapper_proxy(self.local_mapper),
@@ -127,6 +131,11 @@ class System:
                 """LocalMapping::InterruptBA (src/Tracking.cpp:1412)."""
                 mapper.interrupt_ba()
 
+            def run_ba(self, *args, **kwargs):
+                """The BA of the initial monocular map, on the tracker's
+                thread: no keyframe has reached the worker yet."""
+                return mapper.run_ba(*args, **kwargs)
+
         self._proxy = _Proxy()
         return self._proxy
 
@@ -155,16 +164,24 @@ class System:
                 self._queue.task_done()
 
     # ------------------------------------------------------------- public API
+    def _need(self, sensor: Sensor, entry: str):
+        if self.cfg.sensor != sensor:
+            raise ValueError(f"{entry} on a {self.cfg.sensor.name} system")
+
     def track_monocular(self, img: np.ndarray, timestamp: float):
-        raise _not_ported("monocular tracking", "mono initialization, "
-                          "ops/twoview.py and engine_step.mono_init_step")
+        self._need(Sensor.MONOCULAR, "track_monocular")
+        gray = self._gray(img)
+        return self._tracked(timestamp, lambda: self.tracker.process_image(
+            gray, timestamp))
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float):
-        raise _not_ported("stereo tracking", "stereo, ops/stereo.stereo_match")
+        self._need(Sensor.STEREO, "track_stereo")
+        gl, gr = self._gray(left), self._gray(right)
+        return self._tracked(timestamp, lambda: self.tracker.process_image(
+            gl, timestamp, right_img=gr))
 
     def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float):
-        if self.cfg.sensor != Sensor.RGBD:
-            raise ValueError(f"track_rgbd on a {self.cfg.sensor.name} system")
+        self._need(Sensor.RGBD, "track_rgbd")
         gray = self._gray(img)
         return self._tracked(timestamp, lambda: self.tracker.process_image(
             gray, timestamp, depth_map=depth))
@@ -186,8 +203,9 @@ class System:
         return pose
 
     def run_sequence(self, frames, pipelined: bool = True):
-        """Sequence runner over (timestamp, {"image", "depth"}) pairs.
-        Returns the number of tracked frames.
+        """Sequence runner over (timestamp, {"image", "depth"?, "right"?})
+        pairs: a depth map for RGB-D, a right image for stereo. Returns the
+        number of tracked frames.
 
         pipelined=True: the block driver (Tracker.run_blocked), 6 frames
         per device call with two blocks in flight; each frame's track_ms is
@@ -200,8 +218,14 @@ class System:
                 tracked += int(pose is not None)
             return tracked
         for ts, data in frames:
-            img, depth = rgbd_item(data)
-            tracked += int(self.track_rgbd(img, depth, ts) is not None)
+            img, depth, right = sequence_item(data, self.cfg.sensor)
+            if self.cfg.sensor == Sensor.RGBD:
+                pose = self.track_rgbd(img, depth, ts)
+            elif self.cfg.sensor == Sensor.STEREO:
+                pose = self.track_stereo(img, right, ts)
+            else:
+                pose = self.track_monocular(img, ts)
+            tracked += int(pose is not None)
         return tracked
 
     @staticmethod

@@ -1,7 +1,7 @@
-"""Per-frame tracking: the front-end state machine (RGB-D and its fallbacks).
+"""Per-frame tracking: the front-end state machine of all three sensors.
 
-Counterpart of orbslam2_tpu/tracking.py (src/Tracking.cpp), the subset that
-tracks RGB-D frames, with the local mapper on or off and the relocalizer
+Counterpart of orbslam2_tpu/tracking.py (src/Tracking.cpp): RGB-D, stereo
+and monocular frames, with the local mapper on or off and the relocalizer
 off:
 
 - steady state, synchronous: one fused call per frame
@@ -9,15 +9,21 @@ off:
 - steady state, pipelined (`run_blocked`): 6 frames per device call
   (engine_step.track_frames_block), two blocks in flight, each block's
   outputs copied back without stalling the host;
-- first frame: StereoInitialization from depth;
+- first frame, RGB-D and stereo: StereoInitialization from depth;
+- monocular: one fused initialization attempt per frame
+  (engine_step.mono_init_step, a 16-float readback), the first frame with
+  enough features as the reference, then CreateInitialMapMonocular with a
+  two-keyframe BA and the median-depth scale;
 - fallbacks (staged): TrackWithMotionModel, TrackReferenceKeyFrame (the
   no-vocabulary ratio match) and TrackLocalMap, on the same kernels;
 - keyframes: NeedNewKeyFrame's rule set with the mapper's backpressure,
   CreateNewKeyFrame with close-depth point spawning, then the local mapper.
 
 State machine {NOT_INITIALIZED, OK, LOST} (include/Tracking.h:81-87).
-Monocular initialization, relocalization and localization-only mode are
-later steps of the port (ROADMAP.md queue 1) and raise NotImplementedError.
+Relocalization and localization-only mode are later steps of the port
+(ROADMAP.md queue 1, item 13) and raise NotImplementedError. The JAX
+package's staged `_monocular_initialization` is reached by nothing once the
+fused one drives `process_image`, and is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from .frontend.frame import Frame, FrameBuilder
 from .geometry import camera as cam_mod
 from .geometry import se3_np
 from .map.mapstate import MapState
+from .ops import cuda_kernels as CK
 from .ops import features as F
 from .ops import pose_opt as PO
 from .ops import refine as RF
@@ -74,17 +81,20 @@ def _to_u8(patch: np.ndarray) -> np.ndarray:
     return np.clip(np.round(patch), 0, 255).astype(np.uint8)
 
 
-def rgbd_item(data: dict):
-    """(image, depth) of a sequence item, or NotImplementedError naming the
-    ROADMAP item for the sensors the port does not track yet."""
-    if "right" in data:
-        raise NotImplementedError(
-            "stereo tracking is not ported yet (ROADMAP.md queue 1: stereo)")
-    if "depth" not in data:
-        raise NotImplementedError(
-            "monocular tracking is not ported yet (ROADMAP.md queue 1: mono "
-            "initialization)")
-    return data["image"], data["depth"]
+SENSOR_NAME = {Sensor.MONOCULAR: "mono", Sensor.STEREO: "stereo",
+               Sensor.RGBD: "rgbd"}
+
+
+def sequence_item(data: dict, sensor: Sensor):
+    """(image, depth or None, right image or None) of a sequence item
+    {"image", "depth"?, "right"?}; ValueError when the item lacks what the
+    sensor needs."""
+    depth, right = data.get("depth"), data.get("right")
+    if sensor == Sensor.RGBD and depth is None:
+        raise ValueError("an RGB-D system needs a 'depth' map in every item")
+    if sensor == Sensor.STEREO and right is None:
+        raise ValueError("a stereo system needs a 'right' image in every item")
+    return data["image"], depth, right
 
 
 def _readback(tensors: dict, device: torch.device):
@@ -127,6 +137,16 @@ class Tracker:
         self.sf = F.scale_factors(cfg.orb)
         self.sigma2 = F.sigma2_per_octave(cfg.orb)
         self.builder = FrameBuilder(cfg, self.device)
+        # monocular initialization extracts with twice the feature budget
+        # (src/Tracking.cpp:148-149); its frames have a frame-id counter of
+        # their own, as in the JAX package
+        self.init_builder = (
+            FrameBuilder(cfg, self.device, cfg.orb.n_features * 2)
+            if cfg.sensor == Sensor.MONOCULAR else self.builder)
+        # the minimal sets of the two-view RANSAC are drawn from this
+        # generator (seed 0), on the tracker's device
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(0)
 
         self.state = TrackState.NOT_INITIALIZED
         self.last_frame: Frame | None = None
@@ -153,6 +173,14 @@ class Tracker:
         self._blk_bindings = None
         # amortized time of the frame the block driver yielded last
         self.last_frame_ms = 0.0
+        # fused mono init: the reference attempt's device outputs (chained,
+        # never uploaded again), its (frame_id, timestamp, n_valid), the
+        # tensors the next attempt matches against, and the all-zero
+        # placeholder of an attempt without a reference
+        self._init_out = None
+        self._init_meta = None
+        self._init_ref_args = None
+        self._init_zero = None
 
     # ------------------------------------------------------------------ utils
     def _dev(self, a) -> torch.Tensor:
@@ -189,7 +217,8 @@ class Tracker:
         # the offset is measured in raw-image pixels; for the undistorted
         # coords this assumes a locally-identity undistortion Jacobian
         frame.xy = np.where(ok[:, None], und, frame.xy)
-        # the virtual right-u shifts with u (keeps ur == u - bf/z for RGB-D)
+        # the virtual or matched right-u shifts with u (keeps the disparity
+        # for stereo, and ur == u - bf/z for RGB-D)
         has_ur = ok & (frame.ur >= 0)
         frame.ur = np.where(has_ur, frame.ur + delta[:, 0] * sf, frame.ur)
 
@@ -230,17 +259,17 @@ class Tracker:
     def process_image(self, img: np.ndarray, timestamp: float,
                       depth_map: np.ndarray | None = None,
                       right_img: np.ndarray | None = None) -> np.ndarray | None:
-        if self.cfg.sensor == Sensor.MONOCULAR:
-            raise NotImplementedError(
-                "monocular initialization is not ported yet (ROADMAP.md "
-                "queue 1, mono init: ops/twoview.py, mono_init_step)")
         if (self.state == TrackState.OK and self.last_frame is not None
                 and self.last_frame.pose is not None):
             # steady state: the whole per-frame hot path is one fused call
             # on the device + one readback. velocity None (first frame after
             # init) runs it with a zero-velocity prediction; the staged
             # TrackReferenceKeyFrame fallback fires when that fails.
-            return self._track_fused(img, timestamp, depth_map)
+            return self._track_fused(img, timestamp, depth_map, right_img)
+        if (self.state == TrackState.NOT_INITIALIZED
+                and self.cfg.sensor == Sensor.MONOCULAR):
+            # one fused call and a 16-float readback per attempt
+            return self._mono_init_fused(img, timestamp)
         frame = self.builder.build(img, timestamp, depth_map=depth_map,
                                    right_img=right_img)
         return self.track(frame)
@@ -353,6 +382,191 @@ class Tracker:
         self.init_frame_id = frame.frame_id
         self.state = TrackState.OK
 
+    # ---------------------------------------------- monocular initialization
+    def _create_initial_map_monocular(self, ref: Frame, frame: Frame, idx,
+                                      good, R, t, X):
+        """CreateInitialMapMonocular (src/Tracking.cpp:834-1004): the two
+        keyframes, their triangulated points, a BA over both, and the
+        median-depth scale."""
+        mp = self.map
+        T0 = se3_np.identity()
+        T1 = np.hstack([R, t[:, None]]).astype(np.float32)
+        ref.pose = T0
+        frame.pose = T1
+
+        pt_ids = mp.add_points(X[good].astype(np.float32), ref.desc[good],
+                               ref_kf=0, first_kf=0,
+                               patch=RF.template_of(ref.patch[good]))
+        pt_of_ref = np.full(ref.capacity, -1, np.int32)
+        pt_of_ref[np.flatnonzero(good)] = pt_ids
+        pt_of_cur = np.full(frame.capacity, -1, np.int32)
+        pt_of_cur[idx[good]] = pt_ids
+
+        k0 = mp.add_keyframe(T0, ref.timestamp, ref.frame_id, ref.xy, ref.octave,
+                             ref.angle, ref.desc, ref.valid, pt_of_ref,
+                             patch=ref.patch, xy0=ref.xy0)
+        k1 = mp.add_keyframe(T1, frame.timestamp, frame.frame_id, frame.xy,
+                             frame.octave, frame.angle, frame.desc, frame.valid,
+                             pt_of_cur, patch=frame.patch, xy0=frame.xy0)
+        mp.pt_ref_kf[pt_ids] = k1
+
+        # BA over the initial map, 20 iterations (src/Tracking.cpp:907). The
+        # JAX package also enters both keyframes into its keyframe database
+        # here; the port has none yet (ROADMAP.md queue 1, item 13).
+        if self.local_mapper is not None:
+            self.local_mapper.run_ba([k0, k1], fixed=[k0], iters=(5, 15))
+
+        # median-depth scale normalization (src/Tracking.cpp:913-938)
+        pc = mp.pt_xyz[pt_ids] @ mp.kf_pose[k0, :, :3].T + mp.kf_pose[k0, :, 3]
+        median_depth = float(np.median(pc[:, 2]))
+        if median_depth < 0 or (mp.kf_pt[k1] >= 0).sum() < 80:
+            self._reset_initialization(pt_ids, [k0, k1])
+            return
+        inv = 1.0 / median_depth
+        mp.kf_pose[k1, :, 3] *= inv
+        mp.pt_xyz[pt_ids] *= inv
+        mp.refresh_point_stats(pt_ids)
+
+        frame.pose = mp.kf_pose[k1].copy()
+        frame.pt_idx = pt_of_cur
+        self.ref_kf = k1
+        self.last_kf_frame_id = frame.frame_id
+        # the init frame carries twice the tracker's feature budget; it is
+        # squeezed to the tracker's capacity so that the NEXT frame can run
+        # the fused or blocked path, whose shapes are those of n_features.
+        # pt_idx entries are map point ids, so subsetting rows keeps every
+        # binding valid.
+        self.last_frame = self._squeeze_frame(
+            frame, F.padded_capacity(self.builder.orb.n_features))
+        self.init_frame_id = frame.frame_id
+        self.state = TrackState.OK
+
+    def _squeeze_frame(self, frame: Frame, n: int) -> Frame:
+        """Row-subset a frame to capacity n: point-bound rows first, then
+        the unbound valid rows of highest response. The frame itself when
+        it already fits."""
+        if frame.capacity <= n:
+            return frame
+        bound = frame.pt_idx >= 0
+        resp = np.where(frame.valid, frame.response, -np.inf)
+        order = np.lexsort((-resp, ~bound))  # bound rows first, by response
+        rows = np.sort(order[:n])
+        fr = Frame(
+            frame_id=frame.frame_id, timestamp=frame.timestamp,
+            xy=frame.xy[rows], xy_raw=frame.xy_raw[rows],
+            octave=frame.octave[rows], angle=frame.angle[rows],
+            response=frame.response[rows], desc=frame.desc[rows],
+            valid=frame.valid[rows], depth=frame.depth[rows],
+            ur=frame.ur[rows], patch=frame.patch[rows], xy0=frame.xy0[rows],
+            ur0=frame.ur0[rows])
+        fr.pose = frame.pose
+        fr.pt_idx = frame.pt_idx[rows]
+        fr._refined = frame._refined[rows]
+        return fr
+
+    def _reset_initialization(self, pt_ids, kfs):
+        self.map.remove_points(pt_ids)
+        for k in kfs:
+            self.map.remove_keyframe(k)
+
+    def _frame_from_mats(self, fmat, imat, desc, patch, frame_id,
+                         timestamp) -> Frame:
+        """A host Frame from the packed feature arrays of TrackFrameOut /
+        MonoInitOut (the decode of _ensure_features)."""
+        fr = Frame(
+            frame_id=frame_id, timestamp=timestamp,
+            xy=fmat[:, 0:2].copy(), xy_raw=fmat[:, 2:4].copy(),
+            octave=imat[:, 0].copy(), angle=fmat[:, 9].copy(),
+            response=fmat[:, 10].copy(), desc=desc,
+            valid=imat[:, 4] != 0, depth=fmat[:, 8].copy(),
+            ur=fmat[:, 6].copy(), patch=patch.astype(np.float32),
+            xy0=fmat[:, 4:6].copy(), ur0=fmat[:, 7].copy())
+        fr._refined = imat[:, 3] != 0
+        return fr
+
+    def _mono_init_fused(self, img, timestamp) -> np.ndarray | None:
+        """MonocularInitialization (src/Tracking.cpp:729-832) on the fused
+        device step (engine_step.mono_init_step): one call and one 16-float
+        readback per attempt; the feature and point tensors of both frames
+        are read once, on success."""
+        ib = self.init_builder
+        N = F.padded_capacity(ib.orb.n_features)
+        dev = self.device
+        frame_id = ib._next_id
+        ib._next_id += 1
+        if self._init_ref_args is None:
+            if self._init_zero is None:
+                self._init_zero = (
+                    torch.zeros((N, 2), dtype=torch.float32, device=dev),
+                    torch.zeros((N, 8), dtype=torch.int32, device=dev),
+                    torch.zeros((N,), dtype=torch.bool, device=dev),
+                    torch.zeros((N,), dtype=torch.float32, device=dev),
+                    torch.zeros((N, F.PATCH_WIN, F.PATCH_WIN), dtype=torch.uint8,
+                                device=dev))
+            ref_args = self._init_zero
+        else:
+            ref_args = self._init_ref_args
+        with CK.launches_counted_as("mono_init"):
+            out = ES.mono_init_step(
+                self._dev(img), *ref_args, self._sf_dev, params=ib.orb,
+                cam=self.cfg.camera, generator=self._rng)
+        hdr = out.hdr.cpu().numpy()
+        n_valid, n_matches, success, n_good = (int(v) for v in hdr[:4])
+
+        def set_ref():
+            self._init_out = out
+            self._init_meta = (frame_id, timestamp, n_valid)
+            self._init_ref_args = (out.fmat[:, 0:2], out.desc,
+                                   out.imat[:, 4] != 0, out.fmat[:, 9], out.patch)
+
+        def clear_ref():
+            self._init_out = self._init_meta = self._init_ref_args = None
+
+        if self._init_out is None or self._init_meta[2] < 100:
+            # (re)pick the reference frame (src/Tracking.cpp:735-754)
+            if n_valid > 100:
+                set_ref()
+            else:
+                clear_ref()
+            return None
+        if n_valid <= 100 or n_matches < 100:  # src/Tracking.cpp:784-790
+            clear_ref()
+            return None
+        if not success or n_good < 50:
+            return None  # keep the reference, try the next frame
+
+        # success: read both frames and the init geometry back in one go,
+        # then build the initial map
+        ro = self._init_out
+        host, event = _readback(dict(
+            r_fmat=ro.fmat, r_imat=ro.imat, r_desc=ro.desc, r_patch=ro.patch,
+            c_fmat=out.fmat, c_imat=out.imat, c_desc=out.desc, c_patch=out.patch,
+            idx=out.idx, good=out.good, X=out.X, xy2=out.xy2,
+            xy2_raw=out.xy2_raw, refok=out.ref_ok), dev)
+        if event is not None:
+            event.synchronize()
+            host = {k: v.numpy() for k, v in host.items()}
+        ref_id, ref_ts, _ = self._init_meta
+        ref = self._frame_from_mats(host["r_fmat"], host["r_imat"], host["r_desc"],
+                                    host["r_patch"], ref_id, ref_ts)
+        frame = self._frame_from_mats(host["c_fmat"], host["c_imat"], host["c_desc"],
+                                      host["c_patch"], frame_id, timestamp)
+        # the step's feature-metric refinement, applied to the frame's copy
+        idx, refok = host["idx"], host["refok"]
+        frame.xy[idx[refok]] = host["xy2"][refok]
+        frame.xy_raw[idx[refok]] = host["xy2_raw"][refok]
+        good = host["good"] & (idx >= 0)
+        R = hdr[4:13].reshape(3, 3).astype(np.float32)
+        t = hdr[13:16].astype(np.float32)
+        with self.map.lock:
+            self._create_initial_map_monocular(ref, frame, idx, good, R, t,
+                                               host["X"])
+            if self.state == TrackState.OK:
+                clear_ref()
+                self._log_frame(frame, lost=False)
+                return frame.pose
+        return None
+
     # --------------------------------------------------------------- tracking
     def _track_with_motion_model(self, frame: Frame) -> bool:
         """TrackWithMotionModel (src/Tracking.cpp:1161-1243), staged."""
@@ -460,7 +674,7 @@ class Tracker:
             self._last_dev_frame_id = last.frame_id
         return self._last_dev
 
-    def _track_fused(self, img, timestamp, depth_map=None):
+    def _track_fused(self, img, timestamp, depth_map=None, right_img=None):
         """Steady-state frame: one fused device call
         (engine_step.track_frame_full) + one readback, then host bookkeeping.
         Falls back to the staged path when the motion model fails."""
@@ -477,19 +691,22 @@ class Tracker:
 
             lp_pad, pvalid, best_kf = self._select_local_points(last.pt_idx)
             if lp_pad is None:
-                frame = self.builder.build(img, timestamp, depth_map=depth_map)
+                frame = self.builder.build(img, timestamp, depth_map=depth_map,
+                                           right_img=right_img)
                 return self.track(frame)
 
             # velocity None -> zero-velocity prediction
             T_pred = (last.pose if self.velocity is None
                       else se3_np.orthonormalize(
                           se3_np.compose(self.velocity, last.pose)))
-            sensor = "rgbd" if cfg.sensor == Sensor.RGBD else "mono"
+            sensor = SENSOR_NAME[cfg.sensor]
             img_dev = self._dev(img)
             wire_factor = float(cfg.depth_map_factor)
             if sensor == "rgbd":
                 d16, wire_factor = _depth_wire(depth_map, cfg.depth_map_factor)
                 aux = self._dev(d16.astype(np.int32))
+            elif sensor == "stereo":
+                aux = self._dev(right_img)
             else:
                 aux = img_dev
             ld = self._last_dev_arrays(last)
@@ -831,7 +1048,10 @@ class Tracker:
         per-frame path. A frame that breaks the chain re-tracks the rest of
         its block and every block dispatched on top synchronously.
 
-        frames: (timestamp, {"image", "depth"}) pairs. Yields (ts, pose or
+        frames: (timestamp, {"image", "depth"?, "right"?}) pairs, as the
+        sensor needs. While the state is NOT_INITIALIZED (monocular
+        initialization takes several frames) each frame runs synchronously.
+        Yields (ts, pose or
         None) in order; `last_frame_ms` holds each yielded frame's share of
         its block's time (the gap between yields would charge a whole block
         to its first frame)."""
@@ -840,12 +1060,11 @@ class Tracker:
         self.last_frame_ms = 0.0
 
         def sync_one(item):
-            ts, gray, depth_map = item
             t0 = time.perf_counter()
-            pose = self.process_image(gray, ts, depth_map=depth_map)
+            pose = self._process_item(item)
             self.last_frame_ms = (time.perf_counter() - t0) * 1e3
             self._blk_chain = None
-            return ts, pose
+            return item[0], pose
 
         def finish_oldest():
             """Finish the oldest in-flight block; on a chain break, drop
@@ -909,10 +1128,17 @@ class Tracker:
                 return
 
         for ts, data in frames:
-            img, depth = rgbd_item(data)
-            buf.append((ts, to_gray(img), depth))
+            img, depth, right = sequence_item(data, self.cfg.sensor)
+            buf.append((ts, to_gray(img), depth,
+                        None if right is None else to_gray(right)))
             yield from flush(full_only=True)
         yield from flush(full_only=False)
+
+    def _process_item(self, item):
+        """One (ts, gray, depth, right) item of run_blocked through the
+        synchronous frame."""
+        ts, gray, depth_map, right = item
+        return self.process_image(gray, ts, depth_map=depth_map, right_img=right)
 
     def _blk_seed(self):
         """The chain of the first block after a synchronous frame: the last
@@ -950,15 +1176,23 @@ class Tracker:
             lp_d, pvalid_d = self._dev(lp_pad), self._dev(pvalid)
         # the device work runs outside the map lock: its inputs are tensors
         # already on the tracker's stream, and the mapper never touches them
+        sensor = SENSOR_NAME[cfg.sensor]
         imgs = self._dev(np.stack([c[1] for c in chunk]))
-        wired = [_depth_wire(c[2], cfg.depth_map_factor) for c in chunk]
-        auxs = self._dev(np.stack([w[0] for w in wired]).astype(np.int32))
+        wire_factor = float(cfg.depth_map_factor)
+        if sensor == "rgbd":
+            wired = [_depth_wire(c[2], cfg.depth_map_factor) for c in chunk]
+            wire_factor = wired[0][1]
+            auxs = self._dev(np.stack([w[0] for w in wired]).astype(np.int32))
+        elif sensor == "stereo":
+            auxs = self._dev(np.stack([c[3] for c in chunk]))
+        else:
+            auxs = imgs
         outs, chain = ES.track_frames_block(
             imgs, auxs, *self._blk_chain, *self._mirror, lp_d, pvalid_d,
             self._sf_dev, self._sig2_dev, params=self.builder.orb,
-            cam=cfg.camera, sensor="rgbd",
+            cam=cfg.camera, sensor=sensor,
             close_th=float(cfg.close_depth_threshold),
-            depth_factor=wired[0][1], log_scale=float(np.log(cfg.orb.scale_factor)))
+            depth_factor=wire_factor, log_scale=float(np.log(cfg.orb.scale_factor)))
         self._blk_chain = chain
         host, event = _readback(dict(
             hdr=outs.hdr, fmat=outs.fmat, imat=outs.imat, desc=outs.desc,
@@ -1002,11 +1236,11 @@ class Tracker:
                 # chain broken mid-block: the rest of the block re-tracks
                 # synchronously
                 self._blk_chain = None
-                for ts2, gray, depth_map in chunk[k + 1:n_real]:
+                for item in chunk[k + 1:n_real]:
                     t0s = time.perf_counter()
-                    pose2 = self.process_image(gray, ts2, depth_map=depth_map)
+                    pose2 = self._process_item(item)
                     self.last_frame_ms = (time.perf_counter() - t0s) * 1e3
-                    yield ts2, pose2
+                    yield item[0], pose2
                 return False
             self._blk_bindings = self.last_frame.pt_idx
         if n_real < len(chunk):

@@ -17,7 +17,8 @@ CUDA events around calls queued behind a spin kernel (utils/cuda_timing.py):
 4. `hamming_best2` (exact first) under the three mask kinds of `best2_cases`,
    warm and cold, beside the unfused pair it replaces (hamming_matrix, then
    the plain masked reduction on the matrix); also at [4096,2048], to show
-   how it grows with the pairs.
+   how it grows with the pairs, and under the masks of the stereo and the
+   monocular-initialization matcher (`best2_path_cases`).
 
 Every line carries numbers of this run only; the first line is the card's
 name and power limit. Imports nothing of JAX.
@@ -85,6 +86,41 @@ def best2_cases(A: int, B: int, seed: int = 0):
         cand[pair, first] = True
         cand[pair, first + 1] = True
     yield "edges", a, b2, cand
+
+
+def best2_path_cases(seed: int = 0):
+    """Seeded inputs for `hamming_best2` at the two shapes the stereo and
+    the monocular paths give it, as (kind, desc_a, desc_b, cand), with
+    keypoints drawn in a 640x480 image:
+
+    stereo-band  [1024, 1024], ops/stereo.stereo_match's mask: the right
+                 keypoint within 2 * 1.2^octave rows, within one octave, at
+                 a disparity in (0.1, 500], 1000 of 1024 rows valid;
+    init-window  [2048, 2048], ops/matching.search_for_initialization's
+                 mask: within +-100 px in x and in y (about a tenth of the
+                 pairs), 2000 of 2048 rows valid."""
+    rng = np.random.default_rng(seed)
+
+    def keypoints(n, n_valid):
+        xy = rng.uniform([0, 0], [640, 480], (n, 2)).astype(np.float32)
+        # ORB's budget per level falls by 1 / 1.2 a level
+        p = 1.2 ** -np.arange(8.0)
+        octave = rng.choice(8, n, p=p / p.sum()).astype(np.int32)
+        return xy, octave, np.arange(n) < n_valid
+
+    (lxy, loct, lv), (rxy, roct, rv) = keypoints(1024, 1000), keypoints(1024, 1000)
+    band = 2.0 * (1.2 ** roct.astype(np.float32))
+    d_oct = loct[:, None] - roct[None, :]
+    disp = lxy[:, None, 0] - rxy[None, :, 0]
+    cand = ((np.abs(lxy[:, None, 1] - rxy[None, :, 1]) <= band[None, :])
+            & (np.abs(d_oct) <= 1) & (disp > 0.1) & (disp <= 500.0)
+            & lv[:, None] & rv[None, :])
+    yield "stereo-band", descriptors(rng, 1024), descriptors(rng, 1024), cand
+
+    (axy, _, av), (bxy, _, bv) = keypoints(2048, 2000), keypoints(2048, 2000)
+    dxy = np.abs(axy[:, None, :] - bxy[None, :, :])
+    cand = (dxy[..., 0] < 100.0) & (dxy[..., 1] < 100.0) & av[:, None] & bv[None, :]
+    yield "init-window", descriptors(rng, 2048), descriptors(rng, 2048), cand
 
 
 def xor_popc_compiles() -> tuple[bool, str]:
@@ -192,8 +228,9 @@ def probe_matrix(a, b) -> None:
           flush=True)
 
 
-def probe_best2(A: int, B: int) -> None:
-    for kind, a_np, b_np, cand_np in best2_cases(A, B):
+def probe_best2(cases) -> None:
+    for kind, a_np, b_np, cand_np in cases:
+        A, B = cand_np.shape
         a, b, cand = (torch.from_numpy(x).cuda() for x in (a_np, b_np, cand_np))
         got = CK.hamming_best2(a, b, cand)
         torch.cuda.synchronize()
@@ -236,8 +273,9 @@ def main() -> int:
         b = torch.from_numpy(descriptors(rng, B)).cuda()
         probe_scalar(lib, a, b)
         probe_matrix(a, b)
-        probe_best2(A, B)
-    probe_best2(*LARGER)
+        probe_best2(best2_cases(A, B))
+    probe_best2(best2_cases(*LARGER))
+    probe_best2(best2_path_cases())
     return 0
 
 

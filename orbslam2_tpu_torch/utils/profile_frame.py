@@ -1,20 +1,20 @@
-"""Where a steady-state RGB-D frame's time goes, on one CUDA device.
+"""Where a steady-state frame's time goes, on one CUDA device.
 
-    python -m orbslam2_tpu_torch.utils.profile_frame [--out DIR]
+    python -m orbslam2_tpu_torch.utils.profile_frame [--sensor rgbd|stereo] [--out DIR]
 
-Tracks the RGB-D benchmark room (the configuration of bench.py's RGB-D row:
-640x480, 1000 features, bf=250, ThDepth=25) along the 48-frame orbit
-through System.track_rgbd and, after 12 warm frames, measures three
-windows of 5 frames each:
+Tracks the benchmark room (the configuration of bench.py's RGB-D or stereo
+row: 640x480, 1000 features, bf=250, ThDepth=25) along the 48-frame orbit
+through System.track_rgbd or track_stereo and, after 12 warm frames,
+measures three windows of 5 frames each:
 
 1. unprofiled: the host clock around the frames (each ends in its
    readback, so the device work is included);
 2. under torch.profiler (CPU and CUDA activity): device busy time, kernels
    and cudaLaunchKernel calls per frame, and the busy share of the
    unprofiled frame;
-3. stage times: each of extract_orb, motion_model_core, refine_offsets,
-   pose_optimize and local_points_core wrapped in torch.cuda.synchronize()
-   on both sides.
+3. stage times: each of extract_orb, stereo_match, motion_model_core,
+   refine_offsets, pose_optimize and local_points_core wrapped in
+   torch.cuda.synchronize() on both sides.
 
 Prints the card (nvidia-smi name and power limit) and one line per window;
 with --out, writes the profiler's tables sorted by device and by CPU time
@@ -36,23 +36,35 @@ from ..io import synth
 from ..ops import features as F
 from ..ops import pose_opt as PO
 from ..ops import refine as RF
+from ..ops import stereo as ST
 from .cuda_timing import card_line
 
 N_WARM, N_WINDOW = 12, 5
-STAGES = ((F, "extract_orb"), (FM, "motion_model_core"), (RF, "refine_offsets"),
+STAGES = ((F, "extract_orb"), (ST, "stereo_match"), (FM, "motion_model_core"),
+          (RF, "refine_offsets"),
           (PO, "pose_optimize"), (FM, "local_points_core"))
 
 
-def bench_rgbd_config(scene) -> SlamConfig:
-    """The RGB-D configuration of bench.py: the room's pinhole camera,
-    bf=250, ThDepth=25, defaults otherwise (1000 features, 8 levels)."""
+def bench_config(scene, sensor: Sensor) -> SlamConfig:
+    """The configuration of one of bench.py's full-system rows: the room's
+    pinhole camera, defaults otherwise (1000 features, 8 levels); bf=250
+    and ThDepth=25 with depth (RGB-D, stereo), ThDepth=35 monocular."""
     cfg = with_camera(
-        SlamConfig(sensor=Sensor.RGBD, th_depth=25.0),
+        SlamConfig(sensor=sensor,
+                   th_depth=35.0 if sensor == Sensor.MONOCULAR else 25.0),
         fx=float(scene.K[0, 0]), fy=float(scene.K[1, 1]),
         cx=float(scene.K[0, 2]), cy=float(scene.K[1, 2]),
         k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
         width=scene.width, height=scene.height)
+    if sensor == Sensor.MONOCULAR:
+        return cfg
     return replace(cfg, camera=replace(cfg.camera, bf=250.0))
+
+
+def _track(slam: System, frames, i: int):
+    """Frame i through the entry point of the system's sensor."""
+    entry = slam.track_rgbd if slam.cfg.sensor == Sensor.RGBD else slam.track_stereo
+    return entry(*frames[i], i / 30.0)
 
 
 def _frames(slam: System, frames, start: int) -> float:
@@ -60,7 +72,7 @@ def _frames(slam: System, frames, start: int) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(start, start + N_WINDOW):
-        slam.track_rgbd(*frames[i], i / 30.0)
+        _track(slam, frames, i)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / N_WINDOW
 
@@ -93,6 +105,7 @@ def _stage_times(slam: System, frames, start: int) -> tuple[dict, float]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="directory for the profiler tables")
+    ap.add_argument("--sensor", choices=("rgbd", "stereo"), default="rgbd")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA device")
@@ -104,11 +117,23 @@ def main(argv=None) -> int:
     scene = synth.make_room(seed=0)
     gt = synth.orbit_trajectory(48)
     n = N_WARM + 3 * N_WINDOW
-    frames = [(np.clip(synth.render_room(scene, gt[i], seed=i), 0, 255)
-               .astype(np.uint8), synth.depth_room(scene, gt[i])) for i in range(n)]
-    slam = System(bench_rgbd_config(scene), device="cuda")
+    def u8(pose, seed):
+        return np.clip(synth.render_room(scene, pose, seed=seed), 0, 255).astype(np.uint8)
+
+    def second(i):
+        """The depth map, or the right image as bench.py renders it."""
+        if args.sensor == "rgbd":
+            return synth.depth_room(scene, gt[i])
+        right = gt[i].copy()
+        right[:, 3] = right[:, 3] - np.array([0.5, 0, 0], np.float32)
+        return u8(right, 10_000 + i)
+
+    frames = [(u8(gt[i], i), second(i)) for i in range(n)]
+    sensor = Sensor.RGBD if args.sensor == "rgbd" else Sensor.STEREO
+    slam = System(bench_config(scene, sensor), device="cuda")
+    print(f"sensor: {args.sensor}", flush=True)
     for i in range(N_WARM):
-        slam.track_rgbd(*frames[i], i / 30.0)
+        _track(slam, frames, i)
 
     plain_ms = _frames(slam, frames, N_WARM)
     print(f"unprofiled: {plain_ms:.2f} ms per frame (frames {N_WARM}-"
@@ -128,7 +153,7 @@ def main(argv=None) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         for key, name in (("self_device_time_total", "device"),
                           ("self_cpu_time_total", "cpu")):
-            (args.out / f"frame_profile_{name}.txt").write_text(
+            (args.out / f"frame_profile_{args.sensor}_{name}.txt").write_text(
                 ka.table(sort_by=key, row_limit=40, max_name_column_width=70))
 
     stage, frame_ms = _stage_times(slam, frames, N_WARM + 2 * N_WINDOW)

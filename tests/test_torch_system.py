@@ -1,6 +1,7 @@
 """The port's package boundary and host pieces: it imports without JAX, keeps
 TF32 off, raises NotImplementedError (naming the ROADMAP item) for what is
-not ported yet, runs what is (an empty sequence, a tracker with a mapper),
+not ported yet, runs what is (the three entry points, each refused on a
+System of another sensor; an empty sequence; a tracker with a mapper),
 and its host code (settings, interop, native map ops, the device mirror of
 the point table, host-to-device uploads) agrees with the JAX package."""
 import dataclasses
@@ -50,22 +51,70 @@ def _rgbd_cfg():
                                       max_keyframes=4), bf=250.0)
 
 
+def _mapper_with(**hooks):
+    from orbslam2_tpu_torch.local_mapping import LocalMapper
+    cfg = _rgbd_cfg()
+    return LocalMapper(cfg, MapState(cfg, 1024), device="cpu", **hooks)
+
+
 @pytest.mark.parametrize("call", [
-    lambda s: s.track_monocular(np.zeros((480, 640), np.uint8), 0.0),
-    lambda s: s.track_stereo(np.zeros((480, 640), np.uint8),
-                             np.zeros((480, 640), np.uint8), 0.0),
     lambda s: s.activate_localization_mode(),
     lambda s: s.save_map("never_written.npz"),
     lambda s: s.load_map("never_read.npz"),
-    lambda s: s.run_sequence(iter([(0.0, {"image": np.zeros((480, 640), np.uint8)})])),
-    lambda s: s.run_sequence(iter([(0.0, {"image": np.zeros((480, 640), np.uint8),
-                                         "right": np.zeros((480, 640), np.uint8)})]),
-                             pipelined=False),
+    lambda s: _mapper_with(loop_closer=object()),
+    lambda s: _mapper_with(kf_db=object()),
+    lambda s: _mapper_with(bow_encode=object()),
+    lambda s: Tracker(s.cfg, s.map, None, relocalizer=object(), device="cpu"),
 ])
 def test_not_ported_yet_raises_naming_the_roadmap(call):
     s = P.System(_rgbd_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(s)
+
+
+def _cfg(sensor):
+    cfg = P.SlamConfig(sensor=sensor, max_points=256, max_keyframes=4)
+    return cfg if sensor == P.Sensor.MONOCULAR else P.with_camera(cfg, bf=250.0)
+
+
+_IMG = np.zeros((480, 640), np.uint8)
+_ENTRY = {
+    P.Sensor.MONOCULAR: lambda s: s.track_monocular(_IMG, 0.0),
+    P.Sensor.STEREO: lambda s: s.track_stereo(_IMG, _IMG, 0.0),
+    P.Sensor.RGBD: lambda s: s.track_rgbd(_IMG, np.ones((480, 640), np.float32), 0.0),
+}
+
+
+@pytest.mark.parametrize("sensor", list(_ENTRY), ids=lambda s: s.name)
+def test_every_entry_point_runs_on_its_own_sensor(sensor):
+    """track_monocular and track_stereo no longer raise: a featureless
+    frame goes through the extraction (and, for stereo, the matcher) and
+    leaves the system uninitialized."""
+    s = P.System(_cfg(sensor), device="cpu")
+    assert _ENTRY[sensor](s) is None
+    assert s.tracker.state.name == "NOT_INITIALIZED"
+    assert len(s.metrics.records) == 1
+
+
+@pytest.mark.parametrize("system,entry", [(a, b) for a in _ENTRY for b in _ENTRY if a != b],
+                         ids=lambda s: s.name)
+def test_entry_point_of_another_sensor_is_refused(system, entry):
+    s = P.System(_cfg(system), device="cpu")
+    with pytest.raises(ValueError, match=system.name):
+        _ENTRY[entry](s)
+
+
+@pytest.mark.parametrize("system,item", [
+    (P.Sensor.RGBD, {"image": _IMG}),
+    (P.Sensor.RGBD, {"image": _IMG, "right": _IMG}),
+    (P.Sensor.STEREO, {"image": _IMG}),
+    (P.Sensor.STEREO, {"image": _IMG, "depth": np.ones((480, 640), np.float32)}),
+], ids=["rgbd-mono-item", "rgbd-stereo-item", "stereo-mono-item", "stereo-rgbd-item"])
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_run_sequence_refuses_an_item_without_what_the_sensor_needs(system, item, pipelined):
+    s = P.System(_cfg(system), device="cpu")
+    with pytest.raises(ValueError, match="needs"):
+        s.run_sequence(iter([(0.0, item)]), pipelined=pipelined)
 
 
 @pytest.mark.parametrize("call", [
@@ -111,6 +160,17 @@ def test_track_rgbd_needs_an_rgbd_system():
     s = P.System(P.SlamConfig(max_points=256, max_keyframes=4), device="cpu")
     with pytest.raises(ValueError):
         s.track_rgbd(np.zeros((480, 640), np.uint8), np.ones((480, 640), np.float32), 0.0)
+
+
+def test_mono_keyframes_are_as_wide_as_the_init_frames():
+    """Monocular initialization extracts twice the feature budget, and its
+    two frames become keyframes: the map's keyframe rows hold them."""
+    mono = P.System(_cfg(P.Sensor.MONOCULAR), device="cpu")
+    rgbd = P.System(_rgbd_cfg(), device="cpu")
+    assert mono.map.kf_xy.shape[1] == 2 * rgbd.map.kf_xy.shape[1] == 2048
+    assert mono.tracker.init_builder.orb.n_features == 2000
+    assert mono.tracker.builder.orb.n_features == 1000
+    assert rgbd.tracker.init_builder is rgbd.tracker.builder
 
 
 def test_load_settings_parity(tmp_path):
@@ -188,25 +248,43 @@ def test_point_mirror_follows_the_map():
     np.testing.assert_array_equal(tr._mirror[6].numpy(), mp.pt_valid)
 
 
-def test_bench_rgbd_config_matches_the_bench():
-    """The frame profiler's and chip_smoke.py's configuration is bench.py's
-    RGB-D row (bench.py:46-56), built here with the JAX package."""
+def _bench_configs(sensor: str):
+    """(JAX, port) configuration of one of bench.py's full-system rows
+    (bench.py:46-56), the JAX one built here as the bench builds it."""
     from orbslam2_tpu.io import synth as JS
     from orbslam2_tpu_torch.io import synth as TS
-    from orbslam2_tpu_torch.utils.profile_frame import bench_rgbd_config
+    from orbslam2_tpu_torch.utils.profile_frame import bench_config
     scene = JS.make_room(seed=0)
     j = JC.with_camera(
-        JC.SlamConfig(sensor=JC.Sensor.RGBD, th_depth=25.0),
+        JC.SlamConfig(sensor=JC.Sensor[sensor],
+                      th_depth=25.0 if sensor != "MONOCULAR" else 35.0),
         fx=float(scene.K[0, 0]), fy=float(scene.K[1, 1]),
         cx=float(scene.K[0, 2]), cy=float(scene.K[1, 2]),
         k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
         width=scene.width, height=scene.height)
-    j = dataclasses.replace(j, camera=dataclasses.replace(j.camera, bf=250.0))
-    t = bench_rgbd_config(TS.make_room(seed=0))
+    if sensor != "MONOCULAR":
+        j = dataclasses.replace(j, camera=dataclasses.replace(j.camera, bf=250.0))
+    return j, bench_config(TS.make_room(seed=0), P.Sensor[sensor])
+
+
+def _assert_same_config(j, t):
     assert dataclasses.asdict(t.camera) == dataclasses.asdict(j.camera)
     assert dataclasses.asdict(t.orb) == dataclasses.asdict(j.orb)
     assert (t.sensor.value, t.th_depth, t.local_points_cap, t.max_points) == \
         (j.sensor.value, j.th_depth, j.local_points_cap, j.max_points)
+
+
+def test_bench_rgbd_config_matches_the_bench():
+    """The frame profiler's and chip_smoke.py's configuration is bench.py's
+    RGB-D row, built here with the JAX package."""
+    _assert_same_config(*_bench_configs("RGBD"))
+
+
+@pytest.mark.parametrize("sensor", ["STEREO", "MONOCULAR"])
+def test_bench_config_matches_the_bench_rows(sensor):
+    j, t = _bench_configs(sensor)
+    _assert_same_config(j, t)
+    assert t.close_depth_threshold == j.close_depth_threshold
 
 
 def test_frame_profiler_needs_a_card():

@@ -1,8 +1,10 @@
 """Shared driver of the whole-slice parity tests (test_torch_slice*.py): the
 same rendered RGB-D room sequence through the JAX package's tracker
 (Tracker(cfg, MapState, None, relocalizer=None), mapper off) and through the
-port's System on the CPU with its mapper off in the same way; and the JAX
-tracker's sweep map that the mapping tests start from.
+port's System on the CPU with its mapper off in the same way; the JAX
+tracker's sweep map that the mapping tests start from; and, for the stereo
+and monocular slices, both packages' whole Systems on a rendered sequence
+of that sensor (`run_systems`).
 
 Size: 320x240 with the focal length and baseline scaled from the bench's
 640x480 (fx = 250, bf = 125: the same 0.5 m baseline and 12.5 m close-depth
@@ -33,15 +35,80 @@ W, H, NF = 320, 240, 500
 torch.set_num_threads(2)
 
 
-def configs():
+def configs(sensor: str = "RGBD"):
+    """(JAX config, port config) of one sensor ("RGBD", "STEREO" or
+    "MONOCULAR") at the test size, as bench.py sets them at full size:
+    ThDepth 25 and the 0.5 m baseline with depth, ThDepth 35 and no
+    baseline for monocular."""
     f = 500.0 * W / 640
-    cam = dict(fx=f, fy=f, cx=W / 2, cy=H / 2, width=W, height=H, bf=250.0 * W / 640)
-    kw = dict(th_depth=25.0, local_points_cap=2048, max_points=8192, max_keyframes=64)
-    cfg_j = JC.with_camera(JC.SlamConfig(sensor=JC.Sensor.RGBD,
+    cam = dict(fx=f, fy=f, cx=W / 2, cy=H / 2, width=W, height=H)
+    if sensor != "MONOCULAR":
+        cam["bf"] = 250.0 * W / 640
+    kw = dict(th_depth=35.0 if sensor == "MONOCULAR" else 25.0,
+              local_points_cap=2048, max_points=8192, max_keyframes=64)
+    cfg_j = JC.with_camera(JC.SlamConfig(sensor=JC.Sensor[sensor],
                                          orb=JC.OrbParams(n_features=NF), **kw), **cam)
-    cfg_t = TC.with_camera(TC.SlamConfig(sensor=TC.Sensor.RGBD,
+    cfg_t = TC.with_camera(TC.SlamConfig(sensor=TC.Sensor[sensor],
                                          orb=TC.OrbParams(n_features=NF), **kw), **cam)
     return cfg_j, cfg_t
+
+
+def render_sequence(gt, sensor: str):
+    """The sequence items of one sensor, as bench.py renders them: the right
+    image from the pose shifted by the baseline along the camera's x axis,
+    with seed 10000 + i."""
+    f = 500.0 * W / 640
+    scene = synth.make_room(seed=0, width=W, height=H, fx=f, fy=f)
+    baseline = 250.0 / 500.0
+
+    def u8(T, seed):
+        return np.clip(synth.render_room(scene, T, seed=seed), 0, 255).astype(np.uint8)
+
+    items = []
+    for i in range(len(gt)):
+        data = {"image": u8(gt[i], i)}
+        if sensor == "RGBD":
+            data["depth"] = synth.depth_room(scene, gt[i])
+        elif sensor == "STEREO":
+            T_r = gt[i].copy()
+            T_r[:, 3] = T_r[:, 3] - np.array([baseline, 0, 0], np.float32)
+            data["right"] = u8(T_r, 10_000 + i)
+        items.append((i / 30.0, data))
+    return items
+
+
+def run_systems(gt, sensor: str, with_scale: bool, pipelined: bool = True):
+    """The sequence through the JAX package's System (mapper inline; the
+    keyframe database, BoW, the loop closer and the relocalizer, which the
+    port does not have yet, set to None) and through the port's System on
+    the CPU. Returns (jax, port) results with the ATE (Sim(3)-aligned when
+    with_scale) and the index of the first OK frame."""
+    from orbslam2_tpu.system import System as JSystem
+    cfg_j, cfg_t = configs(sensor)
+    items = render_sequence(gt, sensor)
+
+    def result(slam, tracked, seconds):
+        ts, est = slam.tracker.trajectory()
+        fids = np.round(np.asarray(ts) * 30).astype(int)
+        ate = ate_rmse(camera_centers(est), camera_centers(gt[fids]),
+                       with_scale=with_scale)
+        states = [r.state for r in slam.metrics.records]
+        first_ok = states.index("OK") if "OK" in states else len(states)
+        return dict(tracked=tracked, ate=ate, kfs=slam.map.n_keyframes,
+                    points=slam.map.n_points, seconds=seconds, first_ok=first_ok,
+                    states=states, system=slam)
+
+    t0 = time.perf_counter()
+    js = JSystem(cfg_j)
+    js.kf_db = js.local_mapper.kf_db = js.local_mapper.bow_encode = None
+    js.local_mapper.loop_closer = js.tracker.relocalizer = None
+    jres = result(js, js.run_sequence(iter(items), pipelined=pipelined),
+                  time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ts = System(cfg_t, device="cpu")
+    tres = result(ts, ts.run_sequence(iter(items), pipelined=pipelined),
+                  time.perf_counter() - t0)
+    return jres, tres
 
 
 def render(gt):
