@@ -16,7 +16,9 @@ Phases, each printed on its own line:
    candidate and tied best columns), and at the shapes and masks the stereo
    and the monocular path give it: [1024,1024] under a stereo row-band mask
    and [2048,2048] under the +-100 px window mask of monocular
-   initialization. Times both with CUDA events: per call
+   initialization, and [1024,1024] and [2048,1024] under the same-node
+   mask of `match_by_bow` on the default vocabulary. Times both with CUDA
+   events: per call
    over back-to-back calls (launch cost included), and on the device over
    calls queued behind a spin kernel (launch gaps hidden), warm (the same
    buffers every call, in L2) and cold (more distinct buffers than L2
@@ -25,6 +27,18 @@ Phases, each printed on its own line:
    rate measured in this run), and for `hamming_matrix` the yardstick
    `library_ms`: one torch.matmul of the descriptors unpacked to +-1 fp16
    (unpacked outside the timed region; the package never calls it);
+   3c. `bow_assign` (the vocabulary descent, csrc/bow_assign.cu) against its
+   plain version on the full default vocabulary (168,840 nodes), exactly
+   (words, ok, gate): M = 1024 descriptors of an extracted room frame and
+   M = 2048 of a frame extracted at the monocular initialization's budget,
+   and seeded random sets of both sizes, a tenth of the rows invalid; its
+   times warm and cold, the empty kernel of its grid, its byte bound (the
+   bytes this run's descents touch) and the plain version's time;
+   3d. `ops/pnp.pnp_ransac` on a seeded problem (128 points, 40 of them
+   outliers, padded to the frame's 1024 rows): at least 70 inliers, at most
+   2 outliers among them, the pose within 2 cm and 0.5 degrees of the truth,
+   the inlier count within 3 of the same call on the CPU with the same
+   minimal sets; ms per call, kernels per call and waits for the card;
    3b. the Schur BA solver (ops/ba.ba_solve) on seeded problems at the
    local-BA cell (C=16, P=2048, E=8192) and the global-BA cell (C=128,
    P=8192, E=65536), held to the same call on the CPU (final cost within
@@ -56,16 +70,31 @@ Phases, each printed on its own line:
    cm, at least 3 keyframes, one local BA solve and one triangulated point,
    `hamming_best2` launched by the initialization), and its first 40 frames
    synchronously through System.track_monocular (initialized, OK at the
-   end). Prints the init frames, ms per init attempt and per tracked frame.
+   end). Prints the init frames, ms per init attempt and per tracked frame;
+7. relocalization and localization mode, on the Systems that phases 4b and
+   6 left (their mappers drained, not stopped). RGB-D, after the pipelined
+   sweep: every keyframe made is registered in the keyframe database and
+   has its gate nodes; 3 blank frames leave the tracker LOST; an early
+   viewpoint of the sweep, rendered with new seeds, relocalizes within 4
+   frames, within 5 cm and 1 degree of the ground truth; the next 12 frames
+   of the sweep all track; then activate_localization_mode() and 24 more
+   frames: all tracked, no keyframe and no point added, the temporal points
+   of the motion model used. Monocular, after the pipelined orbit: the
+   same blackout, the viewpoint of the best-covered keyframe relocalizes
+   within 4 frames with the viewing direction within cos > 0.99 of the
+   truth. Prints every relocalization attempt (candidates, BoW matches, PnP
+   inliers, inliers after LM, bindings after rescue, ms).
 
 The launch counts are set to 0 just before each path and read just after;
-both kernels must have been launched on the synchronous and on the pipelined
-path of every sensor. Then it prints the kernel table as one JSON line, and as the last line
+both Hamming kernels must have been launched on the synchronous and on the
+pipelined path of every sensor, `bow_assign` by the mapper of every pipelined
+path that makes keyframes and by the relocalizer in phase 7. Then it prints the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no "ok" line. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -93,7 +122,14 @@ SYNC_MONO_FRAMES = 40
 # this sequence on a CPU, this package 3.36 cm there and 7.12 cm on the
 # card). A trajectory that collapsed would read 25 cm or more.
 GATES = {"rgbd": (0.9, 0.03), "stereo": (0.9, 0.03), "mono": (0.9, 0.08)}
-KERNELS = ("hamming_matrix", "hamming_best2")
+KERNELS = ("hamming_matrix", "hamming_best2", "bow_assign")
+N_BLANK = 3            # blank frames of the blackout
+RELOC_TRIES = 4        # frames a relocalization may take
+RELOC_ON_FRAMES = 12   # frames tracked on after it
+LOCALIZATION_FRAMES = 24
+RGBD_REVISIT = 10      # the sweep frame whose viewpoint is revisited
+RELOC_GATE_CM, RELOC_GATE_DEG = 5.0, 1.0  # RGB-D: the relocalized pose
+RESCUE_WIDTH, RESCUE_POINTS = 1024, 80   # phase 7b: rows and features a frame
 T = None      # orbslam2_tpu_torch.utils.cuda_timing, imported in main()
 
 
@@ -204,18 +240,102 @@ def best2_row(CK, PH, lib, mma_per_s: float, kind: str, a_np, b_np, cand_np,
     return row
 
 
-def check_hamming_best2(CK, PH, lib, mma_per_s: float) -> dict:
+def check_hamming_best2(CK, PH, lib, mma_per_s: float, voc) -> dict:
     """`hamming_best2` at every shape and mask kind (cold on the sparse
-    mask), and at the stereo and the monocular-initialization case."""
+    mask), at the stereo and the monocular-initialization case, and under
+    the same-node mask of `match_by_bow` on vocabulary `voc`."""
     rows = {}
     for A, B in HAMMING_SHAPES:
         for kind, a_np, b_np, cand_np in PH.best2_cases(A, B, seed=0):
             rows[(A, B, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np, b_np,
                                            cand_np, cold=kind == "sparse", reps=10)
-    for kind, a_np, b_np, cand_np in PH.best2_path_cases(seed=0):
+    for kind, a_np, b_np, cand_np in PH.best2_path_cases(seed=0, voc=voc):
         rows[(*cand_np.shape, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np,
                                                  b_np, cand_np, cold=True, reps=10)
     return rows
+
+
+def check_bow_assign(PH, lib, voc, frames: dict) -> dict:
+    """`bow_assign` against its plain version on the full vocabulary: the
+    extracted frames' descriptors (with every tenth valid row declared
+    invalid) and the seeded random sets."""
+    rows = {}
+    cases = [(f"room-frame-{len(d)}", d, v & (np.arange(len(d)) % 10 != 0))
+             for d, v in frames.values()] + list(PH.bow_cases(voc, seed=0))
+    for kind, desc, valid in cases:
+        print("phase 3c: ", end="")
+        rows[kind] = PH.bow_row(lib, voc, kind, np.ascontiguousarray(desc), valid)
+    return rows
+
+
+def _rot_deg(dR: np.ndarray) -> float:
+    """Angle of a rotation matrix in degrees, from its skew part (exact for
+    small angles, where the trace's arccos loses every digit)."""
+    skew = [dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]
+    return float(np.degrees(np.arcsin(min(1.0, np.linalg.norm(skew) / 2))))
+
+
+def check_pnp(PNP) -> None:
+    """pnp_ransac on the card: a seeded problem with 40 outliers among 128
+    points in 1024 padded rows, against the truth and against the same call
+    on the CPU with the same minimal sets."""
+    import warnings
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    n, N = 128, 1024
+    Xn = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(4, 9, n)], -1).astype(np.float32)
+    T_gt = np.hstack([np.eye(3), np.array([[0.1], [0.0], [0.2]])]).astype(np.float32)
+    pc = Xn @ T_gt[:, :3].T + T_gt[:, 3]
+    uvn = np.stack([500 * pc[:, 0] / pc[:, 2] + 320,
+                    500 * pc[:, 1] / pc[:, 2] + 240], -1).astype(np.float32)
+    out = rng.choice(n, 40, replace=False)
+    uvn[out] = rng.uniform([0, 0], [640, 480], (40, 2))
+    X, uv = np.zeros((N, 3), np.float32), np.zeros((N, 2), np.float32)
+    X[:n], uv[:n] = Xn, uvn
+    valid = np.arange(N) < n
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    idx = PNP.draw_minimal_sets(torch.from_numpy(valid), gen)
+    intr = (500.0, 500.0, 320.0, 240.0)
+
+    def call(dev):
+        a = [torch.from_numpy(x).to(dev) for x in (X, uv, np.ones(N, np.float32), valid)]
+        return lambda: PNP.pnp_ransac(*a, *intr, idx=idx.to(dev))
+
+    on_cpu, on_card = call("cpu"), call("cuda")
+    res_c, res = on_cpu(), on_card()
+    inl = res.inliers.cpu().numpy()
+    n_inl, n_cpu = int(res.n_inliers), int(res_c.n_inliers)
+    Tc = res.T.cpu().numpy().astype(np.float64)
+    dR = Tc[:, :3] @ T_gt[:, :3].T
+    deg = _rot_deg(dR)
+    cm = 100 * np.linalg.norm(Tc[:, :3].T @ Tc[:, 3] - T_gt[:, :3].T @ T_gt[:, 3])
+    ms = T.time_ms(on_card, reps=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        on_card()
+        torch.cuda.synchronize()
+    n_kern = sum(e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            on_card()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"phase 3d: pnp_ransac, 128 points with 40 outliers in 1024 rows, 256 "
+          f"hypotheses: {n_inl} inliers on the card ({int(inl[out].sum())} of the "
+          f"outliers), {n_cpu} on the CPU with the same minimal sets; pose "
+          f"{cm:.3f} cm and {deg:.4f} degrees from the truth; {ms:.2f} ms per call "
+          f"(CUDA events, back-to-back), {n_kern} kernels per call (profiler), "
+          f"{waits} waits for the card per call (sync debug mode 'warn')", flush=True)
+    if not (n_inl >= 70 and inl[out].sum() <= 2 and cm <= 2.0 and deg <= 0.5
+            and abs(n_inl - n_cpu) <= 3):
+        raise AssertionError("pnp_ransac: gates 70 inliers, 2 outliers, 2 cm, 0.5 "
+                             "degrees, within 3 of the CPU")
 
 
 def check_ba(BA) -> None:
@@ -265,17 +385,14 @@ def render_sequence(synth, scene, name: str, gt: np.ndarray, sensor: str):
     if key in _RENDERED:
         return _RENDERED[key]
 
-    def u8(pose, seed):
-        return np.clip(synth.render_room(scene, pose, seed=seed), 0, 255).astype(np.uint8)
-
     def item(i):
-        data = {"image": u8(gt[i], i)}
+        data = {"image": _u8(synth, scene, gt[i], i)}
         if sensor == "rgbd":
             data["depth"] = synth.depth_room(scene, gt[i])
         elif sensor == "stereo":
             right = gt[i].copy()
             right[:, 3] = right[:, 3] - np.array([0.5, 0, 0], np.float32)
-            data["right"] = u8(right, 10_000 + i)
+            data["right"] = _u8(synth, scene, right, 10_000 + i)
         return i / 30.0, data
 
     with ThreadPoolExecutor(8) as pool:
@@ -284,12 +401,14 @@ def render_sequence(synth, scene, name: str, gt: np.ndarray, sensor: str):
 
 
 def run_sequence(P, CK, evaluation, tag: str, name: str, items, gt: np.ndarray,
-                 cfg, sensor: str, pipelined: bool, whole: bool = True):
+                 cfg, sensor: str, pipelined: bool, whole: bool = True,
+                 keep: bool = False):
     """Track a rendered sequence on the card: synchronously through the
     sensor's entry point (System.track_rgbd / track_stereo / track_monocular,
     mapper inline), or pipelined through System(async_mapping=True)
-    .run_sequence. Counts the path's launches of both Hamming kernels from 0
-    and applies the sensor's gates; a run that is not the `whole` sequence
+    .run_sequence. Counts the path's kernel launches from 0 and applies the
+    sensor's gates; keep=True drains the mapping worker instead of stopping
+    it and returns the live System under "system"; a run that is not the `whole` sequence
     (the start of the monocular orbit) must initialize and end OK, and is
     not held to the 30% and the ATE gate."""
     n = len(items)
@@ -301,13 +420,15 @@ def run_sequence(P, CK, evaluation, tag: str, name: str, items, gt: np.ndarray,
     t0 = time.perf_counter()
     if pipelined:
         tracked = slam.run_sequence(iter(items), pipelined=True)
-        slam.shutdown()
+        if keep:
+            slam.wait_for_mapping()
+        else:
+            slam.shutdown()
     else:
         tracked = sum(entry(ts, d) is not None for ts, d in items)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {w.__name__: dict(w.launches_by)
-                for w in (CK.hamming_matrix, CK.hamming_best2)}
+    launches = launch_counts(CK)
     recs = slam.metrics.records
     first_ok = next((i for i, r in enumerate(recs) if r.state == "OK"), n)
     ts, est = slam.tracker.trajectory()
@@ -351,11 +472,300 @@ def run_sequence(P, CK, evaluation, tag: str, name: str, items, gt: np.ndarray,
             f"(gates: {100 * share:.0f}%, {100 * ate_limit:.0f} cm)")
     if slam.tracker.state.name != "OK":
         raise AssertionError(f"{tag} {name}: state {slam.tracker.state.name} at the end")
-    for kernel in KERNELS:
+    for kernel in KERNELS[:2]:
         if launches[kernel].get("tracker", 0) <= 0:
             raise AssertionError(f"{tag} {name}: the tracker never launched {kernel}")
+    # every keyframe the mapper took ran the vocabulary descent once
+    if launches["bow_assign"].get("mapper", 0) < lm.counters["keyframes"]:
+        raise AssertionError(f"{tag} {name}: {launches['bow_assign']} bow_assign "
+                             f"launches for {lm.counters['keyframes']} mapped keyframes")
     return dict(launches=launches, counters=dict(lm.counters), kfs=kfs,
-                tracked=tracked, first_ok=first_ok)
+                tracked=tracked, first_ok=first_ok, system=slam if keep else None)
+
+
+def launch_counts(CK) -> dict:
+    return {name: dict(getattr(CK, name).launches_by) for name in KERNELS}
+
+
+def _se3(T: np.ndarray) -> np.ndarray:
+    """[3, 4] pose -> [4, 4] float64."""
+    return np.vstack([T, [0, 0, 0, 1]]).astype(np.float64)
+
+
+def _u8(synth, scene, pose, seed):
+    return np.clip(synth.render_room(scene, pose, seed=seed), 0, 255).astype(np.uint8)
+
+
+def _print_attempts(tag: str, relocalizer, since: int) -> None:
+    for a in relocalizer.attempts[since:]:
+        tried = "; ".join(
+            f"keyframe {t['kf']}: {t['bow_matches']} BoW matches, {t['pnp_inliers']} "
+            f"PnP inliers, {t['lm_inliers']} after LM, {t['bound']} bindings after "
+            f"{t['rescue_passes']} rescue passes" for t in a["tried"])
+        print(f"{tag}: relocalization attempt on frame {a['frame_id']}: "
+              f"{a['candidates']} candidates, {'ok' if a['ok'] else 'failed'}, "
+              f"{a['ms']:.1f} ms" + (f" ({tried})" if tried else ""), flush=True)
+
+
+def _blackout(tag: str, slam, track, shape, t0: float) -> float:
+    """Feed N_BLANK featureless frames; the tracker must end LOST. Returns
+    the next timestamp."""
+    blank = np.full(shape, 128, np.uint8)
+    for j in range(N_BLANK):
+        track(blank, t0 + j / 30.0)
+    if slam.tracking_state.name != "LOST":
+        raise AssertionError(f"{tag}: state {slam.tracking_state.name} after "
+                             f"{N_BLANK} blank frames (expected LOST)")
+    return t0 + N_BLANK / 30.0
+
+
+def check_registration(tag: str, slam) -> None:
+    """Every keyframe made was registered; every live one is in the database
+    and has gate nodes."""
+    lm, mp = slam.local_mapper, slam.map
+    made = lm.counters["keyframes"] + (2 if slam.cfg.sensor.name == "MONOCULAR" else 1)
+    live = [int(k) for k in mp.kf_ids]
+    missing = [k for k in live if not slam.kf_db.registered[k]
+               or not (mp.kf_bow_node[k] >= 0).any()]
+    words = [int((slam.kf_db.word_ids[k] >= 0).sum()) for k in live]
+    print(f"{tag}: {lm.counters['kfs_registered']} keyframes registered of {made} made "
+          f"(the initial map's and the mapper's); {len(live)} live, all in the "
+          f"database with gate nodes: {not missing}; distinct words per keyframe "
+          f"{min(words)} to {max(words)}", flush=True)
+    if lm.counters["kfs_registered"] < made or missing:
+        raise AssertionError(f"{tag}: registered {lm.counters['kfs_registered']} of "
+                             f"{made}, live keyframes not registered: {missing}")
+
+
+def check_reloc_rgbd(CK, synth, scene, slam, gt) -> dict:
+    """Phase 7 on the RGB-D System the pipelined sweep left: blackout,
+    relocalization, tracking on, localization mode."""
+    tag = "phase 7 rgbd"
+    check_registration(tag, slam)
+    world = np.linalg.inv(_se3(gt[0]))  # the map's world is the first camera
+
+    def track(img, ts, i=RGBD_REVISIT):
+        return slam.track_rgbd(img, synth.depth_room(scene, gt[i]), ts)
+
+    CK.reset_launch_counts()
+    t = _blackout(tag, slam, track, (scene.height, scene.width), len(gt) / 30.0)
+    n_att = len(slam.relocalizer.attempts)
+    pose = None
+    for j in range(RELOC_TRIES):
+        pose = track(_u8(synth, scene, gt[RGBD_REVISIT], 999 + j), t)
+        t += 1 / 30.0
+        if pose is not None:
+            break
+    _print_attempts(tag, slam.relocalizer, n_att - N_BLANK + 1)
+    if pose is None:
+        raise AssertionError(f"{tag}: no relocalization within {RELOC_TRIES} frames")
+    truth = (_se3(gt[RGBD_REVISIT]) @ world)[:3]
+    cm = 100 * np.linalg.norm(pose[:, :3].T @ pose[:, 3]
+                              - truth[:, :3].T @ truth[:, 3])
+    deg = _rot_deg(pose[:, :3].astype(np.float64) @ truth[:, :3].T)
+    print(f"{tag}: relocalized on revisit frame {j + 1} of {RELOC_TRIES} at the "
+          f"viewpoint of sweep frame {RGBD_REVISIT}: {cm:.3f} cm and {deg:.4f} "
+          f"degrees from the ground truth", flush=True)
+    if cm > RELOC_GATE_CM or deg > RELOC_GATE_DEG:
+        raise AssertionError(f"{tag}: relocalized pose off by {cm:.2f} cm, {deg:.3f} "
+                             f"degrees (gates: {RELOC_GATE_CM} cm, {RELOC_GATE_DEG} "
+                             "degree)")
+
+    def follow(first: int, n: int, seed0: int, what: str):
+        nonlocal t
+        ok = 0
+        for i in range(first, first + n):
+            ok += track(_u8(synth, scene, gt[i], seed0 + i), t, i) is not None
+            t += 1 / 30.0
+        if ok != n:
+            raise AssertionError(f"{tag}: {what}: tracked {ok}/{n}")
+        return ok
+
+    first = RGBD_REVISIT + 1
+    n_on = follow(first, RELOC_ON_FRAMES, 2000, "the frames after relocalization")
+    slam.wait_for_mapping()
+    kfs, pts = slam.map.n_keyframes, slam.map.n_points
+    slam.activate_localization_mode()
+    temporal0 = slam.tracker.n_temporal_frames
+    n_loc = follow(first + RELOC_ON_FRAMES, LOCALIZATION_FRAMES, 3000,
+                   "localization mode")
+    temporal = slam.tracker.n_temporal_frames - temporal0
+    slam.deactivate_localization_mode()
+    slam.shutdown()
+    launches = launch_counts(CK)
+    print(f"{tag}: tracked {n_on}/{RELOC_ON_FRAMES} frames after the "
+          f"relocalization; localization mode: tracked {n_loc}/{LOCALIZATION_FRAMES}, "
+          f"keyframes {kfs} -> {slam.map.n_keyframes}, points {pts} -> "
+          f"{slam.map.n_points}, {temporal} frames with temporal points; kernel "
+          f"launches {launches}", flush=True)
+    if (slam.map.n_keyframes, slam.map.n_points) != (kfs, pts) or temporal <= 0:
+        raise AssertionError(f"{tag}: localization mode changed the map or never "
+                             "used temporal points")
+    return launches
+
+
+def check_reloc_mono(CK, synth, scene, slam, gt) -> dict:
+    """Phase 7 on the monocular System the pipelined orbit left: blackout,
+    then the viewpoint of the keyframe that observes the most points."""
+    tag = "phase 7 mono"
+    check_registration(tag, slam)
+    mp = slam.map
+    live = [int(k) for k in mp.kf_ids]
+    best = max(live, key=lambda k: int((mp.kf_pt[k] >= 0).sum()))
+    revisit = int(round(float(mp.kf_timestamp[best]) * 30))
+    # the map's world is the camera of keyframe 0, the initialization's
+    # reference frame (its row keeps its timestamp if it was culled)
+    ref = int(round(float(mp.kf_timestamp[0]) * 30))
+
+    def track(img, ts):
+        return slam.track_monocular(img, ts)
+
+    CK.reset_launch_counts()
+    t = _blackout(tag, slam, track, (scene.height, scene.width), len(gt) / 30.0)
+    n_att = len(slam.relocalizer.attempts)
+    pose = None
+    for j in range(RELOC_TRIES):
+        pose = track(_u8(synth, scene, gt[revisit], 999 + j), t)
+        t += 1 / 30.0
+        if pose is not None:
+            break
+    slam.shutdown()
+    launches = launch_counts(CK)
+    _print_attempts(tag, slam.relocalizer, n_att - N_BLANK + 1)
+    if pose is None:
+        raise AssertionError(f"{tag}: no relocalization within {RELOC_TRIES} frames")
+    # viewing direction in the ground truth's world (the map's scale is free)
+    cos = float((pose[2, :3] @ gt[ref][:, :3]) @ gt[revisit][2, :3])
+    print(f"{tag}: relocalized on revisit frame {j + 1} of {RELOC_TRIES} at the "
+          f"viewpoint of orbit frame {revisit} (keyframe {best}): viewing direction "
+          f"cos {cos:.5f}; kernel launches {launches}", flush=True)
+    if cos <= 0.99:
+        raise AssertionError(f"{tag}: viewing direction cos {cos:.4f} (gate: 0.99)")
+    return launches
+
+
+def rescue_world(P, device: str):
+    """(relocalizer, query frame, query pose) of a constructed map on
+    `device`, at the frame width of the main path (1024 rows, 80 of them
+    features). Keyframe 0 sees 80 points from the origin; the query sees
+    them from 5 cm beside it, with the descriptors of features 35 to 69
+    corrupted by 70 bits: past TH_LOW = 50, so that matching by BoW leaves
+    about 45 inliers, under the 50 of the acceptance gate, but inside the
+    ORBdist = 100 of the projective rescue. Keyframe 1 is a decoy: it
+    carries 50 of the query's own descriptors, the corrupted ones among
+    them, so the database ranks it first, but its points lie elsewhere and
+    its PnP finds no pose. The minimal
+    sets of every PnP call come from a numpy generator, the same on every
+    device."""
+    from orbslam2_tpu_torch.frontend.frame import Frame
+    from orbslam2_tpu_torch.io.vocabulary import default_vocabulary
+    from orbslam2_tpu_torch.map.keyframe_db import KeyFrameDatabase
+    from orbslam2_tpu_torch.map.mapstate import MapState
+    from orbslam2_tpu_torch.relocalization import Relocalizer
+    N, n = RESCUE_WIDTH, RESCUE_POINTS
+    rng = np.random.default_rng(3)
+    cfg = P.with_camera(P.SlamConfig(sensor=P.Sensor.MONOCULAR), fx=500.0, fy=500.0,
+                        cx=320.0, cy=240.0, width=640, height=480)
+    cam = cfg.camera
+    voc = default_vocabulary()
+    mp = MapState(cfg, N)
+    db = KeyFrameDatabase(cfg, mp, voc.n_words)
+    reloc = Relocalizer(cfg, mp, voc, db, device=device)
+
+    def project(T, X):
+        Xc = X @ T[:, :3].T + T[:, 3]
+        return np.stack([cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx,
+                         cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy], -1).astype(np.float32)
+
+    def pad(a, fill=0):
+        out = np.full((N,) + a.shape[1:], fill, a.dtype)
+        out[:len(a)] = a
+        return out
+
+    def points():
+        return np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                         rng.uniform(4, 8, n)], -1).astype(np.float32)
+
+    def keyframe(X, desc, frame_id):
+        ids = mp.add_points(X, desc.view(np.int32), ref_kf=frame_id, first_kf=frame_id)
+        dist = np.linalg.norm(X, axis=-1)
+        mp.pt_max_dist[ids], mp.pt_min_dist[ids] = dist, dist / 10.0
+        mp.pt_normal[ids] = X / dist[:, None]
+        T = np.eye(3, 4, dtype=np.float32)
+        k = mp.add_keyframe(T, float(frame_id), frame_id, pad(project(T, X)),
+                            np.zeros(N, np.int32), np.zeros(N, np.float32),
+                            pad(desc).view(np.int32), np.arange(N) < n, pad(ids, -1))
+        vec, nodes = reloc.frame_bow(mp.kf_desc[k], mp.kf_feat_valid[k])
+        mp.kf_bow_node[k] = nodes
+        db.add(k, vec)
+        return k
+
+    X = points()
+    desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    keyframe(X, desc, 0)
+    qdesc = desc.copy()
+    for i in range(35, 70):
+        bits = np.unpackbits(qdesc[i].view(np.uint8))
+        bits[rng.choice(256, 70, replace=False)] ^= 1
+        qdesc[i] = np.packbits(bits).view(np.uint32)
+    decoy = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    decoy[:15], decoy[35:70] = qdesc[:15], qdesc[35:70]
+    keyframe(points(), decoy, 1)
+    T_q = np.hstack([np.eye(3), [[0.05], [0.02], [0.0]]]).astype(np.float32)
+    uv = pad(project(T_q, X))
+    frame = Frame(frame_id=100, timestamp=9.0, xy=uv, xy_raw=uv.copy(),
+                  octave=np.zeros(N, np.int32), angle=np.zeros(N, np.float32),
+                  response=np.ones(N, np.float32), desc=pad(qdesc).view(np.int32),
+                  valid=np.arange(N) < n, depth=np.full(N, -1.0, np.float32),
+                  ur=np.full(N, -1.0, np.float32))
+    draws = np.random.default_rng(17)
+    reloc.minimal_sets = lambda valid: np.stack(
+        [draws.choice(np.flatnonzero(valid), 4, replace=False) for _ in range(256)])
+    return reloc, frame, T_q
+
+
+def check_reloc_rescue(P, CK) -> None:
+    """Phase 7b: the relocalizer's harder branches on the card, which the
+    revisits of phase 7 never reach: a first candidate whose PnP fails, a
+    second whose BoW matches stay under the 50-inlier gate, the projective
+    rescue ([1024,1024] search_by_projection on `hamming_best2`) and the
+    pose optimization after it. Held to the same call on the CPU with the
+    same minimal sets: the same verdict and bindings, the pose within 1e-3."""
+    tag = "phase 7b"
+    cpu, frame_cpu, T_q = rescue_world(P, "cpu")
+    card, frame, _ = rescue_world(P, "cuda")
+    ok_cpu = cpu.relocalize(frame_cpu)
+    CK.reset_launch_counts()
+    ok = card.relocalize(frame)
+    torch.cuda.synchronize()
+    launches = launch_counts(CK)
+    for where, r in (("card", card), ("CPU", cpu)):
+        _print_attempts(f"{tag} ({where})", r, 0)
+    if not (ok and ok_cpu):
+        raise AssertionError(f"{tag}: relocalized on the card {ok}, on the CPU {ok_cpu}")
+    tried = card.attempts[-1]["tried"]
+    same = bool((frame.pt_idx == frame_cpu.pt_idx).all())
+    d_pose = float(np.abs(frame.pose - frame_cpu.pose).max())
+    cm = 100 * float(np.linalg.norm(frame.pose[:, 3] - T_q[:, 3]))
+    print(f"{tag}: constructed map, {RESCUE_POINTS} features in {RESCUE_WIDTH} rows: "
+          f"{len(tried)} candidates tried, {tried[-1]['rescue_passes']} rescue passes "
+          f"lifted {tried[-1]['lm_inliers']} inliers to {tried[-1]['final_inliers']} "
+          f"({tried[-1]['bound']} bindings); bindings equal to the CPU's: {same}; pose "
+          f"within {d_pose:.2e} of the CPU's, translation {cm:.3f} cm from the truth; "
+          f"{card.attempts[-1]['ms']:.1f} ms; kernel launches {launches}", flush=True)
+    first, last = tried[0], tried[-1]
+    if not (len(tried) == 2 and first["pnp_inliers"] < 10
+            and 15 <= last["bow_matches"] < 50 <= last["bound"]
+            and last["rescue_passes"] >= 1 and same and d_pose <= 1e-3 and cm <= 2.0
+            and [t["kf"] for t in tried] == [t["kf"] for t in cpu.attempts[-1]["tried"]]):
+        raise AssertionError(f"{tag}: gates: a failed first candidate, 15 to 49 BoW "
+                             "matches on the second, a rescue pass, 50 bindings, the "
+                             "CPU's bindings and pose (1e-3), 2 cm")
+    # one descent for the frame; a gated match per candidate and one
+    # search_by_projection per rescue pass
+    if (launches["bow_assign"].get("reloc", 0) != 1
+            or launches["hamming_best2"].get("reloc", 0) != 2 + last["rescue_passes"]):
+        raise AssertionError(f"{tag}: kernel launches {launches}")
 
 
 def check_block_sync_free(P, items, cfg, sensor: str) -> None:
@@ -395,8 +805,11 @@ def main() -> int:
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
+    from orbslam2_tpu_torch.io.vocabulary import default_vocabulary
     from orbslam2_tpu_torch.ops import ba as BA
     from orbslam2_tpu_torch.ops import cuda_kernels as CK
+    from orbslam2_tpu_torch.ops import features as FT
+    from orbslam2_tpu_torch.ops import pnp as PNP
     from orbslam2_tpu_torch.utils import cuda_timing, evaluation
     from orbslam2_tpu_torch.utils import probe_hamming as PH
     from orbslam2_tpu_torch.utils.profile_frame import bench_config
@@ -424,9 +837,9 @@ def main() -> int:
     print(f"phase 3: mma.sync m16n8k256 .b1 .and.popc: {mma_per_s:.4g} a second "
           f"over {torch.cuda.get_device_properties(0).multi_processor_count} SMs",
           flush=True)
+    voc = default_vocabulary()
     ham = check_hamming_matrix(CK, PH, lib, mma_per_s)
-    best2 = check_hamming_best2(CK, PH, lib, mma_per_s)
-    check_ba(BA)
+    best2 = check_hamming_best2(CK, PH, lib, mma_per_s, voc)
 
     # the configurations of bench.py's three rows on the room scene
     scene = synth.make_room(seed=0)
@@ -434,19 +847,32 @@ def main() -> int:
             "stereo": bench_config(scene, P.Sensor.STEREO),
             "mono": bench_config(scene, P.Sensor.MONOCULAR)}
     orbit = synth.orbit_trajectory(ORBIT_FRAMES)
+    # phase 3c: descriptors of the orbit's first frame as the tracker
+    # extracts them (1000 features) and as the monocular initialization
+    # does (2000)
+    img0 = torch.from_numpy(_u8(synth, scene, orbit[0], 0)).cuda()
+    orb = cfgs["mono"].orb
+    extracted = {}
+    for n_feat in (orb.n_features, 2 * orb.n_features):
+        feats = FT.extract_orb(img0, dataclasses.replace(orb, n_features=n_feat),
+                               scene.height, scene.width)
+        extracted[n_feat] = (feats.desc.cpu().numpy(), feats.valid.cpu().numpy())
+    bow = check_bow_assign(PH, lib, voc, extracted)
+    check_pnp(PNP)
+    check_ba(BA)
     mono_orbit = synth.orbit_trajectory(MONO_FRAMES)
 
-    def run(tag, name, gt, sensor, pipelined, n=None):
+    def run(tag, name, gt, sensor, pipelined, n=None, keep=False):
         items = render_sequence(synth, scene, name, gt, sensor)[:n]
         return run_sequence(P, CK, evaluation, tag, f"{sensor}-{name}-{len(items)}",
                             items, gt, cfgs[sensor], sensor, pipelined,
-                            whole=sensor != "mono" or n is None)
+                            whole=sensor != "mono" or n is None, keep=keep)
 
     sweep = synth.sweep_trajectory
     sync = [run("phase 4", "orbit", orbit, "rgbd", False, SYNC_ORBIT_FRAMES),
             run("phase 4", "sweep", sweep(SYNC_SWEEP_FRAMES), "rgbd", False)]
     piped = [run("phase 4b", "orbit", orbit, "rgbd", True),
-             run("phase 4b", "sweep", sweep(SWEEP_FRAMES), "rgbd", True)]
+             run("phase 4b", "sweep", sweep(SWEEP_FRAMES), "rgbd", True, keep=True)]
     for runs in (sync, piped):
         if runs[1]["kfs"] < 3:
             raise AssertionError(f"RGB-D sweep: {runs[1]['kfs']} keyframes (gate: 3)")
@@ -472,7 +898,7 @@ def main() -> int:
                                  "frames (gate: 1 and 2 a tracked frame)")
     # phase 6, monocular: initialization launches hamming_best2 under the
     # +-100 px window mask, counted apart from the tracker
-    mono = [run("phase 6", "orbit", mono_orbit, "mono", True),
+    mono = [run("phase 6", "orbit", mono_orbit, "mono", True, keep=True),
             run("phase 6", "orbit", mono_orbit, "mono", False, SYNC_MONO_FRAMES)]
     for r in mono:
         if r["launches"]["hamming_best2"].get("mono_init", 0) <= 0:
@@ -481,6 +907,20 @@ def main() -> int:
     if mono[0]["kfs"] < 3 or c["ba_solves"] < 1 or c["points_created"] <= 0:
         raise AssertionError(f"pipelined mono: {mono[0]['kfs']} keyframes, counters {c} "
                              "(gates: 3 keyframes, 1 BA solve, 1 triangulated point)")
+
+    # phase 7: relocalization and localization mode on the Systems that the
+    # pipelined RGB-D sweep and the pipelined monocular orbit left
+    reloc = [dict(launches=check_reloc_rgbd(CK, synth, scene, piped[1]["system"],
+                                            sweep(SWEEP_FRAMES))),
+             dict(launches=check_reloc_mono(CK, synth, scene, mono[0]["system"],
+                                            mono_orbit))]
+    for r, sensor in zip(reloc, ("rgbd", "mono")):
+        for kernel in ("bow_assign", "hamming_best2"):
+            if r["launches"][kernel].get("reloc", 0) <= 0:
+                raise AssertionError(f"phase 7 {sensor}: the relocalizer never "
+                                     f"launched {kernel}")
+    # phase 7b: its launches are counted apart from the main paths'
+    check_reloc_rescue(P, CK)
 
     def total(runs, kernel: str) -> dict:
         by = {}
@@ -491,11 +931,11 @@ def main() -> int:
 
     # the main path is the bench's entry point, pipelined with async
     # mapping, once per sensor row (and the RGB-D sweep, which maps)
-    main_path = piped + [stereo[0], mono[0]]
+    main_path = piped + [stereo[0], mono[0]] + reloc
     others = sync + [stereo[1], mono[1]]
     launches_by = {kernel: total(main_path, kernel) for kernel in KERNELS}
-    print(f"phase 6: kernel launches on the pipelined paths of all sensors: "
-          f"{launches_by}; synchronous paths: "
+    print(f"phase 7: kernel launches on the pipelined paths of all sensors and "
+          f"the relocalization paths after them: {launches_by}; synchronous paths: "
           f"{({k: total(others, k) for k in KERNELS})}", flush=True)
 
     # every number in these lines is measured in this run, at the shape the
@@ -503,9 +943,10 @@ def main() -> int:
     # [1024,1024] for hamming_matrix, local_points_core's [4096,1024] for
     # hamming_best2 (on the 1% mask); its stereo and init cases follow under
     # "other_shapes"
-    def entry(name: str, source: str, row: dict, rows: dict, library_ms) -> dict:
+    def entry(name: str, source: str, row: dict, rows: dict, library_ms,
+              replaces: str = "orbslam2_tpu/ops/pallas_kernels.py:43") -> dict:
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": "orbslam2_tpu/ops/pallas_kernels.py:43",
+                "replaces": replaces,
                 "launches": sum(launches_by[name].values()),
                 "launches_by": launches_by[name],
                 "max_abs_err": max(r["err"] for r in rows.values()),
@@ -523,10 +964,22 @@ def main() -> int:
          "device_ms": r["dev"], "cold_device_ms": r["cold"], "floor_ms": r["floor"],
          "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"]}
-        for (_, _, kind), r in best2.items() if kind in ("stereo-band", "init-window")]
+        for (_, _, kind), r in best2.items()
+        if kind in ("stereo-band", "init-window", "node-gate", "node-gate-mono")]
+    # bow_assign at the mapper's and the relocalizer's shape: an extracted
+    # frame's 1024 rows. It has no Pallas source: the XLA program
+    # assign_words computes the same descent (no single PyTorch call does)
+    row_c = bow["room-frame-1024"]
+    entry_c = entry("bow_assign", "orbslam2_tpu_torch/csrc/bow_assign.cu", row_c, bow,
+                    None, replaces="orbslam2_tpu/ops/bow.py:28")
+    entry_c["other_shapes"] = [
+        {"case": kind, "shape": r["shape"], "ms": r["ms"], "device_ms": r["dev"],
+         "cold_device_ms": r["cold"], "floor_ms": r["floor"],
+         "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
+         "bound_by": "bytes"} for kind, r in bow.items() if r is not row_c]
     print(json.dumps({"kernels": [
         entry("hamming_matrix", "orbslam2_tpu_torch/csrc/hamming.cu", row_a, ham,
-              row_a["library_ms"]), entry_b]}), flush=True)
+              row_a["library_ms"]), entry_b, entry_c]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

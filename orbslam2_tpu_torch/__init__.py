@@ -2,14 +2,16 @@
 
 The JAX package (orbslam2_tpu) is the reference; this package mirrors its
 module paths and runs on PyTorch, with the TPU kernel rewritten by hand for
-NVIDIA Hopper in two forms (csrc/hamming.cu, csrc/hamming_best2.cu). It
+NVIDIA Hopper in two forms (csrc/hamming.cu, csrc/hamming_best2.cu) and the
+vocabulary descent as a third hand-written kernel (csrc/bow_assign.cu). It
 never imports jax or orbslam2_tpu.
 
 So far the port covers monocular, stereo and RGB-D tracking with local
-mapping: System(cfg, device="cuda").track_monocular(...) / track_stereo(...)
-/ track_rgbd(...), or pipelined with the mapper on its own thread,
+mapping, place recognition, relocalization and localization mode:
+System(cfg, device="cuda").track_monocular(...) / track_stereo(...) /
+track_rgbd(...), or pipelined with the mapper on its own thread,
 System(cfg, device="cuda", async_mapping=True).run_sequence(frames,
-pipelined=True). See ROADMAP.md for the rest.
+pipelined=True). See ROADMAP.md for the rest (loop closing, map files).
 """
 import torch as _torch
 

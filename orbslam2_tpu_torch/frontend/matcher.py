@@ -15,6 +15,9 @@ function here builds one mask and calls the fused best / second-best kernel
 - `match_descriptors_ratio` <- SearchByBoW (src/ORBmatcher.cpp:220-369)
   without the vocabulary gate, TH_LOW + ratio 0.7 + rotation histogram: the
   tracker's reference-keyframe fallback when no vocabulary is loaded.
+- `match_by_bow` <- SearchByBoW with the FeatureVector node gate
+  (src/ORBmatcher.cpp:243-299): the reference-keyframe fallback with a
+  vocabulary, and the relocalizer's candidate match.
 - `epipolar_match_core` <- ORBmatcher::SearchForTriangulation +
   CheckDistEpipolarLine (src/ORBmatcher.cpp:785-994, :135-160): local
   mapping's match between two keyframes' unmatched features.
@@ -161,6 +164,20 @@ def match_descriptors_ratio(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b):
     """Global ratio-test matching a->b (SearchByBoW's work without the
     vocabulary gate): TH_LOW + ratio 0.7 + rotation histogram."""
     cand = valid_a[:, None] & valid_b[None, :]
+    res = M.hamming_best_match(desc_a, desc_b, cand, M.TH_LOW, 0.7)
+    ok = M.rotation_consistency(angle_a, angle_b, res.idx, res.valid)
+    return M.resolve_duplicate_targets(M._select(ok, res), desc_b.shape[0])
+
+
+def match_by_bow(desc_a, valid_a, angle_a, node_a,
+                 desc_b, valid_b, angle_b, node_b):
+    """SearchByBoW with the reference's FeatureVector node gate
+    (src/ORBmatcher.cpp:243-299): only descriptors under the SAME depth-2
+    vocabulary node are compared. node_a/node_b: [*] int32 gate node per
+    feature (-1 = unassigned, never matches). TH_LOW + ratio 0.7 + rotation
+    histogram, as the ungated form."""
+    same = (node_a[:, None] == node_b[None, :]) & (node_a >= 0)[:, None]
+    cand = valid_a[:, None] & valid_b[None, :] & same
     res = M.hamming_best_match(desc_a, desc_b, cand, M.TH_LOW, 0.7)
     ok = M.rotation_consistency(angle_a, angle_b, res.idx, res.valid)
     return M.resolve_duplicate_targets(M._select(ok, res), desc_b.shape[0])

@@ -1,0 +1,269 @@
+"""ORB vocabulary: hierarchical binary-descriptor tree as dense arrays.
+
+Counterpart of orbslam2_tpu/io/vocabulary.py (DBoW2's TemplatedVocabulary,
+Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h): the pointer tree is flat
+arrays (node descriptors [N, 8], children table [N, k]) so the greedy
+descent (`transform`, TemplatedVocabulary.h:1241-1279) runs over all
+keypoints at once: on the device in ops/bow.assign_words, on the host in
+`assign_words_numpy`. Host numpy, apart from `device_tables_on`; the port
+keeps its own copy so that it imports nothing of the JAX package.
+
+- `Vocabulary`: the arrays, with npz save/load. Node descriptors are stored
+  as uint32 words (the file format of both packages); `device_tables` gives
+  the int32 bit-views the port's device code takes, `device_tables_on`
+  uploads them once per device.
+- `default_vocabulary`: the vocabulary shipped with the package
+  (data/vocab_default.npz, the same file as the JAX package's).
+- `train_vocabulary`: hierarchical k-medians (k-means over Hamming space
+  with majority-vote bit medians, k-means++ seeding).
+- `load_orbvoc_text`: parser for the public ORBvoc.txt format
+  (TemplatedVocabulary.h:243-255 loadFromTextFile).
+
+Every function takes descriptors as [N, 8] uint32 or int32 words of the
+same bits.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+import torch
+
+DEFAULT_VOCAB = Path(__file__).resolve().parent.parent / "data" / "vocab_default.npz"
+
+
+@functools.lru_cache(maxsize=1)
+def default_vocabulary() -> "Vocabulary":
+    """The vocabulary shipped with the package, loaded once per process
+    (every System shares it: it is read-only)."""
+    return Vocabulary.load(DEFAULT_VOCAB)
+
+
+@dataclass
+class Vocabulary:
+    k: int                      # branching factor
+    levels: int                 # depth
+    node_desc: np.ndarray       # [N, 8] uint32
+    node_children: np.ndarray   # [N, k] int32, -1 = none
+    node_word: np.ndarray       # [N] int32 word id for leaves, -1 otherwise
+    word_weight: np.ndarray     # [W] float32 idf weights
+    word_node: np.ndarray       # [W] int32 leaf node of each word
+    # device_tables_on's uploads, by device
+    _on_device: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def n_words(self) -> int:
+        return len(self.word_weight)
+
+    def device_tables(self):
+        """(node_desc [N, 8] int32 bit-view, node_children [N, k] int32,
+        node_word [N] int32) as contiguous host arrays, the form
+        ops/bow.assign_words takes once they are on a device."""
+        return (np.ascontiguousarray(self.node_desc, np.uint32).view(np.int32),
+                np.ascontiguousarray(self.node_children, np.int32),
+                np.ascontiguousarray(self.node_word, np.int32))
+
+    def device_tables_on(self, device):
+        """`device_tables()` as tensors on `device`, uploaded on the first
+        call for that device and shared by every caller after it (they are
+        read-only). The first call waits for its copies, so any stream may
+        read the tensors once it has returned."""
+        key = str(device)
+        if key not in self._on_device:
+            self._on_device[key] = tuple(torch.from_numpy(a).to(device)
+                                         for a in self.device_tables())
+        return self._on_device[key]
+
+    def save(self, path):
+        np.savez_compressed(
+            path, k=self.k, levels=self.levels, node_desc=self.node_desc,
+            node_children=self.node_children, node_word=self.node_word,
+            word_weight=self.word_weight, word_node=self.word_node)
+
+    @staticmethod
+    def load(path) -> "Vocabulary":
+        z = np.load(path)
+        return Vocabulary(int(z["k"]), int(z["levels"]), z["node_desc"],
+                          z["node_children"], z["node_word"],
+                          z["word_weight"], z["word_node"])
+
+
+def _unpack_bits(desc: np.ndarray) -> np.ndarray:
+    """[N, 8] u32 (or int32 of the same bits) -> [N, 256] uint8 bits."""
+    desc = np.ascontiguousarray(desc)
+    if desc.dtype == np.int32:
+        desc = desc.view(np.uint32)
+    return np.unpackbits(
+        desc.astype("<u4").view(np.uint8), axis=-1, bitorder="little")
+
+
+def _pack_bits(bits: np.ndarray) -> np.ndarray:
+    """[N, 256] bits -> [N, 8] u32."""
+    return np.packbits(bits, axis=-1, bitorder="little").view("<u4").astype(np.uint32)
+
+
+def _pack_u64(bits: np.ndarray) -> np.ndarray:
+    """[N, 256] bits -> [N, 4] uint64 for popcount distance."""
+    return np.packbits(bits, axis=-1, bitorder="little").view(np.uint64)
+
+
+def _hamming(a_bits, b_bits):
+    """[A, 256] x [B, 256] bit arrays -> [A, B] int (packed popcount)."""
+    return _hamming_packed(_pack_u64(a_bits), _pack_u64(b_bits))
+
+
+def _hamming_packed(a: np.ndarray, b: np.ndarray, chunk: int = 8192):
+    """[A, 4] x [B, 4] uint64 -> [A, B] int32 XOR-popcount distances."""
+    out = np.empty((len(a), len(b)), np.int32)
+    for s in range(0, len(a), chunk):
+        x = a[s:s + chunk, None, :] ^ b[None, :, :]
+        out[s:s + chunk] = np.bitwise_count(x).sum(-1, dtype=np.int32)
+    return out
+
+
+def _kmedians_binary(bits, k, rng, iters=8, packed=None):
+    """k-means over binary descriptors: majority-bit medians, k-means++ seed.
+    bits: [N, 256]. Returns (centers [k, 256], assignment [N])."""
+    n = len(bits)
+    k = min(k, n)
+    if packed is None:
+        packed = _pack_u64(bits)
+    # k-means++ seeding
+    center_idx = [rng.integers(n)]
+    d_min = None
+    for _ in range(k - 1):
+        d_new = _hamming_packed(packed, packed[center_idx[-1:]])[:, 0]
+        d_min = d_new if d_min is None else np.minimum(d_min, d_new)
+        tot = float(d_min.sum())
+        if tot < 1e-9:
+            center_idx.append(rng.integers(n))
+        else:
+            center_idx.append(rng.choice(n, p=d_min.astype(np.float64) / tot))
+    centers = bits[np.array(center_idx)]
+    assign = np.zeros(n, np.int64)
+    for _ in range(iters):
+        assign = _hamming_packed(packed, _pack_u64(centers)).argmin(-1)
+        new_centers = centers.copy()
+        for c in range(k):
+            m = assign == c
+            if m.sum() > 0:
+                new_centers[c] = (bits[m].mean(0) > 0.5).astype(np.uint8)
+        if (new_centers == centers).all():
+            break
+        centers = new_centers
+    return centers, assign
+
+
+def train_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 4,
+                     seed: int = 0, max_train: int = 60000) -> Vocabulary:
+    """Build a k^levels-leaf vocabulary from [N, 8] u32 descriptors
+    (TemplatedVocabulary::create equivalent). Weights = idf over the
+    training set."""
+    rng = np.random.default_rng(seed)
+    if len(descriptors) > max_train:
+        descriptors = descriptors[rng.choice(len(descriptors), max_train,
+                                             replace=False)]
+    bits = _unpack_bits(descriptors)
+
+    node_desc = [np.zeros(256, np.uint8)]  # root placeholder
+    node_children: list[list[int]] = [[]]
+    node_level = [0]
+    # BFS split
+    queue = [(0, bits)]
+    leaf_nodes = []
+    while queue:
+        nid, subset = queue.pop(0)
+        if node_level[nid] == levels or len(subset) <= 1:
+            leaf_nodes.append(nid)
+            continue
+        centers, assign = _kmedians_binary(subset, k, rng)
+        for c in range(len(centers)):
+            child = len(node_desc)
+            node_desc.append(centers[c])
+            node_children.append([])
+            node_level.append(node_level[nid] + 1)
+            node_children[nid].append(child)
+            sub = subset[assign == c]
+            if len(sub) == 0:
+                leaf_nodes.append(child)
+            else:
+                queue.append((child, sub))
+
+    N = len(node_desc)
+    desc_arr = _pack_bits(np.stack(node_desc))
+    child_arr = np.full((N, k), -1, np.int32)
+    for i, ch in enumerate(node_children):
+        child_arr[i, :len(ch)] = ch
+    node_word = np.full(N, -1, np.int32)
+    word_node = np.array(sorted(leaf_nodes), np.int32)
+    for w, nid in enumerate(word_node):
+        node_word[nid] = w
+
+    voc = Vocabulary(k, levels, desc_arr, child_arr, node_word,
+                     np.ones(len(word_node), np.float32), word_node)
+    # idf weights from the training set
+    words = assign_words_numpy(voc, descriptors)
+    n_docs = max(len(descriptors) // 500, 1)  # pseudo-documents of 500 feats
+    counts = np.bincount(words, minlength=voc.n_words).astype(np.float64)
+    idf = np.log(max(len(descriptors), 1) / np.maximum(counts, 1.0))
+    voc.word_weight = np.maximum(idf, 1e-3).astype(np.float32)
+    return voc
+
+
+def assign_words_numpy(voc: Vocabulary, descriptors: np.ndarray) -> np.ndarray:
+    """Host implementation of the tree descent, vectorized over descriptors
+    exactly like the device function (ops/bow.assign_words). Returns word
+    ids [N]."""
+    packed = _pack_u64(_unpack_bits(descriptors))          # [N, 4]
+    node_packed = _pack_u64(_unpack_bits(voc.node_desc))   # [Nn, 4]
+    n = len(descriptors)
+    nid = np.zeros(n, np.int64)
+    for _ in range(voc.levels):
+        ch = voc.node_children[nid]                        # [N, k]
+        chd = node_packed[np.clip(ch, 0, None)]            # [N, k, 4]
+        dist = np.bitwise_count(chd ^ packed[:, None, :]).sum(-1, dtype=np.int32)
+        dist[ch < 0] = 1 << 20
+        best = ch[np.arange(n), dist.argmin(-1)]
+        has_child = (ch >= 0).any(-1)
+        step = has_child & (voc.node_word[nid] < 0)
+        nid = np.where(step, best, nid)
+    return np.maximum(voc.node_word[nid], 0).astype(np.int64)
+
+
+def load_orbvoc_text(path) -> Vocabulary:
+    """Parse the public ORBvoc.txt format: first line `k L scoring weighting`,
+    then one node per line: `parent_placeholder is_leaf 32_bytes weight`
+    (DBoW2 TemplatedVocabulary::loadFromTextFile)."""
+    lines = Path(path).read_text().split("\n")
+    k, L = int(lines[0].split()[0]), int(lines[0].split()[1])
+    nodes_desc = [np.zeros((8,), np.uint32)]
+    parents = [-1]
+    is_leaf = [False]
+    weights = [0.0]
+    for line in lines[1:]:
+        parts = line.split()
+        if len(parts) < 35:
+            continue
+        parents.append(int(parts[0]))
+        is_leaf.append(bool(int(parts[1])))
+        byts = np.array([int(x) for x in parts[2:34]], np.uint8)
+        nodes_desc.append(byts.view("<u4").astype(np.uint32))
+        weights.append(float(parts[34]))
+    N = len(parents)
+    child_arr = np.full((N, k), -1, np.int32)
+    fill = np.zeros(N, np.int32)
+    for i in range(1, N):
+        p = parents[i]
+        child_arr[p, fill[p]] = i
+        fill[p] += 1
+    node_word = np.full(N, -1, np.int32)
+    leaf_ids = [i for i in range(N) if is_leaf[i]]
+    word_node = np.array(leaf_ids, np.int32)
+    ww = np.zeros(len(leaf_ids), np.float32)
+    for w, nid in enumerate(leaf_ids):
+        node_word[nid] = w
+        ww[w] = weights[nid]
+    return Vocabulary(k, L, np.stack(nodes_desc), child_arr, node_word, ww,
+                      word_node)

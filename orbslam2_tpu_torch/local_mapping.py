@@ -18,9 +18,12 @@ function plus host bookkeeping on the structure-of-arrays map:
 
 Each stage takes the map lock around its host read and apply sections and
 releases it while its device work runs, so the tracker's frames interleave
-with the mapping but never see a half-applied update. Place recognition
-(the keyframe database and BoW, ROADMAP.md queue 1 item 13) and loop
-closing (item 14) are not ported: their hooks must be None.
+with the mapping but never see a half-applied update. With a keyframe
+database and a BoW encoder (relocalization.Relocalizer.frame_bow) every
+keyframe's BoW vector and gate nodes are registered in its prep
+(ProcessNewKeyFrame's ComputeBoW + KeyFrameDatabase::add), and a culled
+keyframe leaves the database. Loop closing (ROADMAP.md queue 1, item 14) is
+not ported: its hook must be None.
 """
 from __future__ import annotations
 
@@ -170,12 +173,17 @@ class LocalMapper:
     def __init__(self, cfg: SlamConfig, mp: MapState, loop_closer=None,
                  kf_db=None, bow_encode=None,
                  device: torch.device | str = "cpu"):
-        if loop_closer is not None or kf_db is not None or bow_encode is not None:
+        if loop_closer is not None:
             raise NotImplementedError(
-                "the keyframe database, BoW and loop closing are not ported "
-                "yet (ROADMAP.md queue 1, items 13 and 14)")
+                "loop closing is not ported yet (ROADMAP.md queue 1, item 14)")
         self.cfg = cfg
         self.map = mp
+        # place recognition: the keyframe database and the BoW encoder (the
+        # Relocalizer: its frame_bow for a keyframe of an initial map, its
+        # frame_bow_dispatch and frame_bow_finish for the keyframes that
+        # pass through `process`); either None turns registration off
+        self.kf_db = kf_db
+        self.bow_encode = bow_encode
         self.device = torch.device(device)
         self.sf = F.scale_factors(cfg.orb)
         self.sigma2 = F.sigma2_per_octave(cfg.orb)
@@ -194,7 +202,7 @@ class LocalMapper:
         # per keyframe: {"kf": k, stage: ms for each of STAGES}
         self.stage_ms: list[dict] = []
         self.counters = dict(keyframes=0, points_created=0, fuse_merges=0,
-                             ba_solves=0, kfs_culled=0)
+                             ba_solves=0, kfs_culled=0, kfs_registered=0)
         self.ba_solve_ms: list[float] = []
 
     def _dev(self, a) -> torch.Tensor:
@@ -203,6 +211,23 @@ class LocalMapper:
     def interrupt_ba(self):
         """Skip the current or next local BA (InterruptBA, mbAbortBA)."""
         self._interrupt_ba.set()
+
+    def register_keyframe(self, kf: int):
+        """BoW transform + place-recognition index insert
+        (ProcessNewKeyFrame's ComputeBoW + KeyFrameDatabase::add). Also
+        stores the per-feature FeatureVector gate nodes for node-gated
+        SearchByBoW (src/ORBmatcher.cpp:243-299). The tracker calls it for
+        the keyframes of an initial map, which never pass through
+        `process`."""
+        if self.kf_db is not None and self.bow_encode is not None:
+            vec, nodes = self.bow_encode.frame_bow(self.map.kf_desc[kf],
+                                                   self.map.kf_feat_valid[kf])
+            self._register(kf, vec, nodes)
+
+    def _register(self, kf: int, vec, nodes):
+        self.map.kf_bow_node[kf] = nodes
+        self.kf_db.add(kf, vec)
+        self.counters["kfs_registered"] += 1
 
     # ------------------------------------------------------------- refinement
     def _refine_windows(self, win, templates: np.ndarray):
@@ -256,6 +281,33 @@ class LocalMapper:
                                          templates)
         self._apply_refined(kfs, feats, delta.cpu().numpy(), ok.cpu().numpy())
 
+    @staticmethod
+    def _fetch_prep(bow, refined):
+        """One readback for a keyframe's prep: the (words, ok, nodes) tensors
+        of the BoW dispatch and the (delta, ok) tensors of the refinement
+        dispatch, either of which may be None, packed into one int32 tensor
+        on the device (the offsets as their bit patterns) and split again on
+        the host. Returns (bow, refined) as host arrays."""
+        parts = []
+        if bow is not None:
+            parts += [t.to(torch.int32) for t in bow]
+        if refined is not None:
+            feats, delta, ok = refined
+            parts += [delta.to(torch.float32).contiguous().view(torch.int32).reshape(-1),
+                      ok.to(torch.int32)]
+        if not parts:
+            return None, None
+        flat = torch.cat(parts).cpu().numpy()
+        if bow is not None:
+            n = len(bow[0])
+            bow = flat[:n], flat[n:2 * n] != 0, flat[2 * n:3 * n]
+            flat = flat[3 * n:]
+        if refined is not None:
+            m = len(feats)
+            refined = (feats, flat[:2 * m].view(np.float32).reshape(m, 2),
+                       flat[2 * m:] != 0)
+        return bow, refined
+
     # ---------------------------------------------------------------- process
     def process(self, kf: int):
         """ProcessNewKeyFrame + the per-keyframe pipeline (LocalMapping::Run,
@@ -269,17 +321,28 @@ class LocalMapper:
             # must not cancel its BA (mbAbortBA is cleared per keyframe)
             self._interrupt_ba.clear()
             mp = self.map
+            # the BoW word assignment and the observation refinement are
+            # both dispatched under the lock and read back together outside
+            # it; only this thread culls keyframes and points, so the
+            # snapshot cannot go stale in between
             with mp.lock:
+                t_bow = time.perf_counter()
+                bow = (self.bow_encode.frame_bow_dispatch(
+                    mp.kf_desc[kf], mp.kf_feat_valid[kf])
+                    if self.kf_db is not None and self.bow_encode is not None else None)
+                bow_ms = (time.perf_counter() - t_bow) * 1e3
                 refined = self._refine_bound_dispatch(kf)
                 # spanning-tree parent: the most covisible KF at insertion
                 if mp.kf_parent[kf] < 0:
                     w = mp.covisibility_weights(kf)
                     if w.max() > 0:
                         mp.kf_parent[kf] = int(np.argmax(w))
-            if refined is not None:
-                feats, delta, ok = refined
-                refined = feats, delta.cpu().numpy(), ok.cpu().numpy()
+            bow, refined = self._fetch_prep(bow, refined)
             with mp.lock:
+                if bow is not None:
+                    t_bow = time.perf_counter()
+                    self._register(kf, *self.bow_encode.frame_bow_finish(*bow))
+                    bow_ms += (time.perf_counter() - t_bow) * 1e3
                 if refined is not None:
                     self._refine_bound_apply(kf, *refined)
                 mp.refresh_point_stats(np.unique(mp.kf_pt[kf][mp.kf_pt[kf] >= 0]))
@@ -294,8 +357,12 @@ class LocalMapper:
             with mp.lock:
                 self.cull_keyframes(kf)
             t.append(time.perf_counter())
+        # "bow" is the host time inside "prep" that place recognition adds:
+        # dispatching the word assignment, then building and registering the
+        # sparse vector (the wait for the card is shared with the refinement)
         self.stage_ms.append({"kf": kf, **{s: (t[i + 1] - t[i]) * 1e3
-                                           for i, s in enumerate(STAGES)}})
+                                           for i, s in enumerate(STAGES)},
+                              "bow": bow_ms})
 
     # ---------------------------------------------------------------- culling
     def cull_recent_points(self):
@@ -350,6 +417,8 @@ class LocalMapper:
                                      minlength=mp.pt_xyz.shape[0])
             if (n_good_obs[pts] >= 3).sum() > 0.9 * n_pts:
                 mp.remove_keyframe(k)
+                if self.kf_db is not None:
+                    self.kf_db.erase(k)
                 self.counters["kfs_culled"] += 1
 
     # ----------------------------------------------------------- new points

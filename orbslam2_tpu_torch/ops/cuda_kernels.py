@@ -3,8 +3,10 @@
 Counterpart of orbslam2_tpu/ops/pallas_kernels.py. The JAX package has one
 Pallas TPU kernel, the tiled XOR-popcount Hamming matrix
 (`hamming_matrix_pallas`); the port has it in two forms, both on the tensor
-cores' single-bit mma (csrc/hamming_tile.cuh), built for sm_90a with nvcc
-into `build/` on first use (_build.py) and bound with ctypes:
+cores' single-bit mma (csrc/hamming_tile.cuh), and a third kernel for the
+one Hamming computation the JAX package does outside it. All are built for
+sm_90a with nvcc into `build/` on first use (_build.py) and bound with
+ctypes:
 
 - `hamming_matrix` (csrc/hamming.cu): the same function, [A, 8] x [B, 8] ->
   [A, B] int32. Plain version `hamming_matrix_ref`.
@@ -12,6 +14,10 @@ into `build/` on first use (_build.py) and bound with ctypes:
   best / second-best reduction that every matcher applies to it, so the
   [A, B] distances never reach device memory. Plain version
   `hamming_best2_ref`.
+- `bow_assign` (csrc/bow_assign.cu): the vocabulary-tree descent of
+  orbslam2_tpu/ops/bow.py `assign_words` (an XLA program with an inline
+  XOR-popcount over gathered children, no Pallas source), one warp a
+  descriptor. Plain version `bow_assign_ref`.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs its plain version, which is also what tests and chip_smoke.py compare
@@ -48,12 +54,16 @@ MAX_COLUMNS = 1 << 22
 _CSRC = PKG_DIR / "csrc"
 _TILE_HEADER = _CSRC / "hamming_tile.cuh"
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# library name -> (source, launch function, its argument types)
+# library name -> (source, headers it includes, launch function, its
+# argument types)
 _KERNELS = {
-    "hamming": (_CSRC / "hamming.cu", "hamming_matrix_launch",
+    "hamming": (_CSRC / "hamming.cu", (_TILE_HEADER,), "hamming_matrix_launch",
                 [_PTR, _PTR, _PTR, _INT, _INT, _PTR]),
-    "hamming_best2": (_CSRC / "hamming_best2.cu", "hamming_best2_launch",
+    "hamming_best2": (_CSRC / "hamming_best2.cu", (_TILE_HEADER,),
+                      "hamming_best2_launch",
                       [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR]),
+    "bow_assign": (_CSRC / "bow_assign.cu", (), "bow_assign_launch",
+                   [_PTR] * 8 + [_INT] * 4 + [_PTR]),
 }
 _launchers: dict = {}
 _load_lock = threading.Lock()
@@ -69,14 +79,15 @@ def _popcount8() -> np.ndarray:
 
 def _library(name: str):
     """Path of library `name`, compiled first if it is stale."""
-    return build_library(name, [_KERNELS[name][0]], "nvcc", headers=(_TILE_HEADER,))
+    source, headers = _KERNELS[name][:2]
+    return build_library(name, [source], "nvcc", headers=headers)
 
 
 def _launcher(name: str):
     """The launch function of library `name`, built and loaded on first use."""
     with _load_lock:
         if name not in _launchers:
-            _, fn_name, argtypes = _KERNELS[name]
+            _, _, fn_name, argtypes = _KERNELS[name]
             fn = getattr(ctypes.CDLL(str(_library(name))), fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -218,7 +229,90 @@ def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     return idx, best, second
 
 
-_WRAPPERS = (hamming_matrix, hamming_best2)
+def bow_assign_ref(node_desc: torch.Tensor, node_children: torch.Tensor,
+                   node_word: torch.Tensor, desc: torch.Tensor,
+                   valid: torch.Tensor, levels: int, gate_depth: int):
+    """Plain version of `bow_assign`: the level loop of
+    orbslam2_tpu/ops/bow.py assign_words, with the byte popcount table of
+    `hamming_matrix_ref` in place of a popcount instruction."""
+    M = desc.shape[0]
+    dev = desc.device
+    table = constant("popcount8", _popcount8, dev)
+    nid = torch.zeros(M, dtype=torch.int64, device=dev)
+    gate = nid
+    for lv in range(levels):
+        ch = node_children[nid]                                  # [M, k]
+        ch_desc = node_desc[ch.clamp(min=0).long()]              # [M, k, 8]
+        x = torch.bitwise_xor(ch_desc, desc[:, None, :])
+        bytes_ = x.contiguous().view(torch.uint8).to(torch.int32)
+        dist = table[bytes_].sum(-1, dtype=torch.int32)
+        dist = torch.where(ch >= 0, dist, BIG)
+        best = ch.gather(1, dist.argmin(dim=1, keepdim=True))[:, 0].long()
+        step = (ch >= 0).any(dim=1) & (node_word[nid] < 0)
+        nid = torch.where(step, best, nid)
+        if lv == gate_depth - 1:
+            gate = nid
+    w = node_word[nid]
+    ok = valid & (w >= 0)
+    return (torch.where(ok, w, 0), ok,
+            torch.where(ok, gate.to(torch.int32), -1))
+
+
+def bow_assign(node_desc: torch.Tensor, node_children: torch.Tensor,
+               node_word: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor,
+               levels: int, gate_depth: int):
+    """Vocabulary-tree descent of every descriptor.
+
+    node_desc: [N, 8] int32 bit-views; node_children: [N, k] int32 (-1 =
+    none), k <= 32; node_word: [N] int32 (word of a leaf, else -1); desc:
+    [M, 8] int32; valid: [M] bool. Returns (words [M] int32, 0 where not ok;
+    ok [M] bool; gate [M] int32, the node after `gate_depth` steps, -1 where
+    not ok). At each level the first child of lowest Hamming distance wins
+    (argmin's tie rule)."""
+    _check_desc("node_desc", node_desc)
+    _check_desc("desc", desc)
+    N, M = node_desc.shape[0], desc.shape[0]
+    if N < 1:
+        raise ValueError("node_desc: a vocabulary has at least its root")
+    if node_children.dtype != torch.int32 or node_children.dim() != 2 \
+            or node_children.shape[0] != N:
+        raise ValueError(f"node_children: expected int32 [{N}, k], got "
+                         f"{node_children.dtype} {tuple(node_children.shape)}")
+    k = node_children.shape[1]
+    if not 1 <= k <= 32:
+        raise ValueError(f"node_children: branching factor {k} is outside 1..32 "
+                         "(one lane of a warp takes one child)")
+    if node_word.dtype != torch.int32 or tuple(node_word.shape) != (N,):
+        raise ValueError(f"node_word: expected int32 [{N}], got "
+                         f"{node_word.dtype} {tuple(node_word.shape)}")
+    if valid.dtype != torch.bool or tuple(valid.shape) != (M,):
+        raise ValueError(f"valid: expected bool [{M}], got {valid.dtype} "
+                         f"{tuple(valid.shape)}")
+    tensors = (node_desc, node_children, node_word, desc, valid)
+    if any(t.device != desc.device for t in tensors):
+        raise ValueError("bow_assign: tensors on different devices: "
+                         + ", ".join(str(t.device) for t in tensors))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("bow_assign: every tensor must be contiguous")
+    if desc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bow_assign kernel for device {desc.device}")
+    if desc.device.type == "cpu":
+        return bow_assign_ref(node_desc, node_children, node_word, desc, valid,
+                              levels, gate_depth)
+    if node_desc.data_ptr() % 16 != 0 or desc.data_ptr() % 16 != 0:
+        raise ValueError("bow_assign: descriptors must be 16-byte aligned")
+    words, gate = torch.empty((2, M), dtype=torch.int32, device=desc.device).unbind(0)
+    ok = torch.empty(M, dtype=torch.bool, device=desc.device)
+    if M == 0:
+        return words, ok, gate  # nothing to compute: no launch
+    _launch(bow_assign, "bow_assign", desc.device, node_desc.data_ptr(),
+            node_children.data_ptr(), node_word.data_ptr(), desc.data_ptr(),
+            valid.data_ptr(), words.data_ptr(), ok.data_ptr(), gate.data_ptr(),
+            M, k, int(levels), int(gate_depth))
+    return words, ok, gate
+
+
+_WRAPPERS = (hamming_matrix, hamming_best2, bow_assign)
 
 
 def reset_launch_counts() -> None:

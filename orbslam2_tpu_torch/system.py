@@ -4,13 +4,20 @@ Counterpart of orbslam2_tpu/system.py (src/System.cpp). It builds the map,
 the tracker of the configured sensor and the local mapper, and exposes the
 reference's API surface (include/System.h:63-110):
 
-    System(cfg, device="cuda", async_mapping=False)
+    System(cfg, device="cuda", async_mapping=False, vocabulary=None)
     track_monocular(img, t) -> Tcw [3,4] or None
     track_stereo(left, right, t) -> Tcw [3,4] or None
     track_rgbd(rgb, depth, t) -> Tcw [3,4] or None
     run_sequence(frames, pipelined=True)
+    activate_localization_mode() / deactivate_localization_mode()
     save_trajectory_tum(path)
-    reset() / shutdown()
+    wait_for_mapping() / reset() / shutdown()
+
+`vocabulary` is a Vocabulary, the path of an .npz or of an ORBvoc text file;
+None loads the vocabulary shipped with the package. With it the System builds
+the keyframe database and the relocalizer: the mapper registers every
+keyframe's BoW vector, a lost tracker relocalizes against the database, and
+localization mode tracks against the frozen map.
 
 Local mapping runs per keyframe: inline by default, or with
 async_mapping=True on a worker thread fed through a bounded queue (the
@@ -21,24 +28,27 @@ mirror is refreshed from the host map under the map lock, and the mapper's
 keyframe cache (local_mapping.KFStore) is its own.
 
 What the port does not do yet raises NotImplementedError naming the
-ROADMAP.md item that brings it: the keyframe database, relocalization and
-localization mode, loop closing, map save/load.
+ROADMAP.md item that brings it: loop closing, map save/load.
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .config import SlamConfig, Sensor
 from .io import trajectory as traj_io
+from .io.vocabulary import Vocabulary, default_vocabulary, load_orbvoc_text
 from .local_mapping import LocalMapper
+from .map.keyframe_db import KeyFrameDatabase
 from .map.mapstate import MapState
 from .ops.features import padded_capacity
-from .tracking import Tracker, sequence_item
+from .relocalization import Relocalizer
+from .tracking import Tracker, TrackState, sequence_item
 from .utils.metrics import MetricsLog
 
 
@@ -48,9 +58,17 @@ def _not_ported(what: str, item: str):
 
 class System:
     def __init__(self, cfg: SlamConfig, device: torch.device | str = "cuda",
-                 async_mapping: bool = False):
+                 async_mapping: bool = False,
+                 vocabulary: Vocabulary | str | Path | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        if vocabulary is None:
+            vocabulary = default_vocabulary()
+        elif isinstance(vocabulary, (str, Path)):
+            vocabulary = (Vocabulary.load(vocabulary)
+                          if str(vocabulary).endswith(".npz")
+                          else load_orbvoc_text(vocabulary))
+        self.vocabulary = vocabulary
         self.metrics = MetricsLog()
         self._async = async_mapping
         self._queue: queue.Queue | None = None
@@ -67,10 +85,15 @@ class System:
         # initialization extracts twice the feature budget
         wide = 2 if self.cfg.sensor == Sensor.MONOCULAR else 1
         self.map = MapState(self.cfg, padded_capacity(self.cfg.orb.n_features * wide))
-        self.local_mapper = LocalMapper(self.cfg, self.map, device=self.device)
+        self.kf_db = KeyFrameDatabase(self.cfg, self.map, self.vocabulary.n_words)
+        self.relocalizer = Relocalizer(self.cfg, self.map, self.vocabulary,
+                                       self.kf_db, device=self.device)
+        self.local_mapper = LocalMapper(self.cfg, self.map, kf_db=self.kf_db,
+                                        bow_encode=self.relocalizer,
+                                        device=self.device)
         self.tracker = Tracker(self.cfg, self.map,
                                self._mapper_proxy(self.local_mapper),
-                               device=self.device)
+                               relocalizer=self.relocalizer, device=self.device)
         self.tracker.reset_callback = self.reset
 
     # --------------------------------------------------------------- pipeline
@@ -135,6 +158,11 @@ class System:
                 """The BA of the initial monocular map, on the tracker's
                 thread: no keyframe has reached the worker yet."""
                 return mapper.run_ba(*args, **kwargs)
+
+            def register(self, kf):
+                """Enter a keyframe of an initial map into the database, on
+                the tracker's thread."""
+                mapper.register_keyframe(kf)
 
         self._proxy = _Proxy()
         return self._proxy
@@ -210,9 +238,10 @@ class System:
         pipelined=True: the block driver (Tracker.run_blocked), 6 frames
         per device call with two blocks in flight; each frame's track_ms is
         its share of its block (the driver's last_frame_ms).
-        pipelined=False: one synchronous frame at a time."""
+        pipelined=False: one synchronous frame at a time, which is also
+        what localization mode runs."""
         tracked = 0
-        if pipelined:
+        if pipelined and not self.localization_mode_active:
             for ts, pose in self.tracker.run_blocked(frames, self._gray):
                 self._record(ts, self.tracker.last_frame_ms, False)
                 tracked += int(pose is not None)
@@ -239,7 +268,32 @@ class System:
 
     # ------------------------------------------------------------------ state
     def activate_localization_mode(self):
-        raise _not_ported("localization mode", "relocalization")
+        """Tracking only, against the frozen map
+        (System::ActivateLocalizationMode, src/System.cpp:267)."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.localization_only = False
+
+    @property
+    def localization_mode_active(self) -> bool:
+        return self.tracker.localization_only
+
+    @property
+    def tracking_state(self) -> TrackState:
+        return self.tracker.state
+
+    def wait_for_mapping(self):
+        """Block until the mapping worker has processed every queued
+        keyframe (it keeps running, unlike after shutdown); raises the
+        worker's failure. Nothing to wait for with the mapper inline."""
+        if self._worker is not None:
+            while self._proxy._pending:
+                self._proxy._flush_pending()
+                self._queue.join()
+            self._queue.join()
+        if self._error is not None:
+            raise RuntimeError("the mapping worker failed") from self._error
 
     def shutdown(self):
         """System::Shutdown (src/System.cpp:285): drain the mapping queue
@@ -258,7 +312,7 @@ class System:
 
     def reset(self):
         """System::Reset (src/System.cpp:279; Tracking::Reset :2030): a new
-        map, mapper and tracker. Keyframes already queued are mapped into
+        map, keyframe database, relocalizer, mapper and tracker. Keyframes already queued are mapped into
         the old map, which nothing reads any more."""
         self._build()
 

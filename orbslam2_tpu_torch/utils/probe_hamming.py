@@ -18,7 +18,11 @@ CUDA events around calls queued behind a spin kernel (utils/cuda_timing.py):
    warm and cold, beside the unfused pair it replaces (hamming_matrix, then
    the plain masked reduction on the matrix); also at [4096,2048], to show
    how it grows with the pairs, and under the masks of the stereo and the
-   monocular-initialization matcher (`best2_path_cases`).
+   monocular-initialization matcher and under the same-node mask of
+   `match_by_bow` on the default vocabulary (`best2_path_cases`);
+5. `bow_assign` (exact first) at M = 1024 and 2048 on the default vocabulary,
+   warm and cold, beside its empty kernel, its byte bound and its plain
+   version.
 
 Every line carries numbers of this run only; the first line is the card's
 name and power limit. Imports nothing of JAX.
@@ -88,17 +92,67 @@ def best2_cases(A: int, B: int, seed: int = 0):
     yield "edges", a, b2, cand
 
 
-def best2_path_cases(seed: int = 0):
-    """Seeded inputs for `hamming_best2` at the two shapes the stereo and
-    the monocular paths give it, as (kind, desc_a, desc_b, cand), with
-    keypoints drawn in a 640x480 image:
+def gate_nodes(voc, desc: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Gate node of every descriptor ([n, 8] int32) under vocabulary `voc`,
+    from the plain version of `bow_assign` on the CPU."""
+    from ..ops.bow import GATE_DEPTH
+    tables = (torch.from_numpy(t) for t in voc.device_tables())
+    return CK.bow_assign_ref(*tables, torch.from_numpy(desc), torch.from_numpy(valid),
+                             voc.levels, GATE_DEPTH)[2].numpy()
+
+
+def bow_assign_bytes(voc, desc: np.ndarray, valid: np.ndarray) -> tuple[int, int]:
+    """Bytes of one `bow_assign` call on these descriptors, as (distinct,
+    touched). Both count each descriptor (32) and its valid flag (1) read and
+    its three outputs (9) written. `distinct` is what the function must move:
+    every node that some valid descriptor's descent stands on counted once
+    for the whole call, with its word id (4) and, if it is an inner node, its
+    row of children (4 k) and the descriptor (32) of every child it has; the
+    bound is made from it. `touched` counts a node once per descriptor and
+    level that visits it (the kernel descends invalid rows too): the loads
+    the kernel makes, most of which the L2 serves."""
+    from ..io.vocabulary import _pack_u64, _unpack_bits
+    packed = _pack_u64(_unpack_bits(desc))
+    node_packed = _pack_u64(_unpack_bits(voc.node_desc))
+    n = len(desc)
+    nid = np.zeros(n, np.int64)
+    touched = n * (32 + 1 + 9)
+    stood_on, expanded = [], []
+    for _ in range(voc.levels):
+        ch = voc.node_children[nid]
+        inner = voc.node_word[nid] < 0
+        touched += 4 * n + int(inner.sum()) * 4 * voc.k + 32 * int((ch[inner] >= 0).sum())
+        stood_on.append(nid[valid])
+        expanded.append(nid[valid & inner])
+        dist = np.bitwise_count(node_packed[np.clip(ch, 0, None)]
+                                ^ packed[:, None, :]).sum(-1, dtype=np.int32)
+        dist[ch < 0] = 1 << 20
+        step = (ch >= 0).any(-1) & inner
+        nid = np.where(step, ch[np.arange(n), dist.argmin(-1)], nid)
+    stood_on.append(nid[valid])
+    expanded = np.unique(np.concatenate(expanded))
+    distinct = (n * (32 + 1 + 9) + 4 * len(np.unique(np.concatenate(stood_on)))
+                + 4 * voc.k * len(expanded)
+                + 32 * int((voc.node_children[expanded] >= 0).sum()))
+    return distinct, touched
+
+
+def best2_path_cases(seed: int = 0, voc=None):
+    """Seeded inputs for `hamming_best2` at the shapes the stereo, the
+    monocular and (given a vocabulary) the relocalization paths give it, as
+    (kind, desc_a, desc_b, cand), with keypoints drawn in a 640x480 image:
 
     stereo-band  [1024, 1024], ops/stereo.stereo_match's mask: the right
                  keypoint within 2 * 1.2^octave rows, within one octave, at
                  a disparity in (0.1, 500], 1000 of 1024 rows valid;
     init-window  [2048, 2048], ops/matching.search_for_initialization's
                  mask: within +-100 px in x and in y (about a tenth of the
-                 pairs), 2000 of 2048 rows valid."""
+                 pairs), 2000 of 2048 rows valid;
+    node-gate    [1024, 1024] and node-gate-mono [2048, 1024] (a monocular
+                 keyframe is 2048 wide), frontend/matcher.match_by_bow's
+                 mask: both features under the same depth-2 node of `voc`,
+                 the keyframe's feature bound to a point (3 of 4), the
+                 frame's valid (1000 of 1024)."""
     rng = np.random.default_rng(seed)
 
     def keypoints(n, n_valid):
@@ -121,6 +175,17 @@ def best2_path_cases(seed: int = 0):
     dxy = np.abs(axy[:, None, :] - bxy[None, :, :])
     cand = (dxy[..., 0] < 100.0) & (dxy[..., 1] < 100.0) & av[:, None] & bv[None, :]
     yield "init-window", descriptors(rng, 2048), descriptors(rng, 2048), cand
+
+    if voc is None:
+        return
+    b, bv = descriptors(rng, 1024), np.arange(1024) < 1000
+    node_b = gate_nodes(voc, b, bv)
+    for kind, n in (("node-gate", 1024), ("node-gate-mono", 2048)):
+        a, has_pt = descriptors(rng, n), rng.random(n) < 0.75
+        node_a = gate_nodes(voc, a, np.ones(n, bool))
+        cand = ((node_a[:, None] == node_b[None, :]) & (node_a >= 0)[:, None]
+                & has_pt[:, None] & bv[None, :])
+        yield kind, a, b, cand
 
 
 def xor_popc_compiles() -> tuple[bool, str]:
@@ -254,6 +319,64 @@ def probe_best2(cases) -> None:
               flush=True)
 
 
+def bow_cases(voc, seed: int = 0):
+    """Seeded inputs for `bow_assign`: (kind, desc [M, 8] int32, valid [M])
+    at M = 1024 and 2048, a tenth of the rows invalid."""
+    rng = np.random.default_rng(seed)
+    for m in (1024, 2048):
+        yield f"random-{m}", descriptors(rng, m), rng.random(m) < 0.9
+
+
+def bow_row(lib, voc, kind: str, desc_np, valid_np, reps: int = 10) -> dict:
+    """One case of `bow_assign` against its plain version on the card:
+    words, ok and gate exact, then per-call and device times (warm: the
+    tables in L2; cold: one of many copies of the tables per call, so that
+    the bytes the calls read exceed the L2), the empty kernel of its grid and
+    its byte bound (the distinct bytes of `bow_assign_bytes`)."""
+    from ..ops.bow import GATE_DEPTH
+    from .cuda_timing import time_ms
+    M = len(desc_np)
+    tables = [torch.from_numpy(t).cuda() for t in voc.device_tables()]
+    d, v = torch.from_numpy(desc_np).cuda(), torch.from_numpy(valid_np).cuda()
+    args = (d, v, voc.levels, GATE_DEPTH)
+    got = CK.bow_assign(*tables, *args)
+    torch.cuda.synchronize()
+    ref = CK.bow_assign_ref(*tables, *args)
+    err = 0
+    for name, x, y in zip(("words", "ok", "gate"), got, ref):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"bow_assign {name} disagrees at M={M} ({kind}) on "
+                                 f"{int((x != y).sum())} rows")
+    # a call reads only n_bytes distinct bytes of the tables: as many copies
+    # of them as `cold_count` allows, so that the parts the calls read exceed
+    # the L2 together
+    n_bytes, n_touched = bow_assign_bytes(voc, desc_np, valid_np)
+    n_sets = cold_count(n_bytes)
+    copies = [[t.clone() for t in tables] for _ in range(n_sets)]
+    row = dict(err=err, shape=f"M={M}", kind=kind, n_valid=int(valid_np.sum()),
+               ms=time_ms(lambda: CK.bow_assign(*tables, *args)),
+               plain_ms=time_ms(lambda: CK.bow_assign_ref(*tables, *args), reps=5),
+               dev=queued_ms(lambda: CK.bow_assign(*tables, *args), reps=reps),
+               cold=queued_cold_ms(lambda i: CK.bow_assign(*copies[i], *args), n_sets),
+               plain_dev=queued_ms(lambda: CK.bow_assign_ref(*tables, *args), reps=3),
+               floor=empty_kernel_ms(lib, -(-M // 4), 1, 128),
+               bytes=n_bytes, touched_bytes=n_touched,
+               bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S,
+               bound_by="bytes")
+    del copies
+    print(f"bow_assign M={M} ({kind}, {row['n_valid']} valid) on {len(voc.node_desc)} "
+          f"nodes (k={voc.k}, {voc.levels} levels): words, ok, gate exact "
+          f"(max_abs_err 0); per call (CUDA events, back-to-back) kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; device time (CUDA "
+          f"events, queued) warm {fmt_ms(row['dev'])}, cold over {n_sets} copies of "
+          f"the tables {fmt_ms(row['cold'])}, plain {fmt_ms(row['plain_dev'])}, empty "
+          f"kernel of the grid {fmt_ms(row['floor'])}; bound {row['bound_ms']:.5f} ms "
+          f"by bytes ({n_bytes} distinct bytes: each node the valid rows' descents "
+          f"stand on counted once; {n_touched} counting it once per row and level; "
+          f"the popcounts are {8 * voc.k * voc.levels * M} in all)", flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this probe runs only on the card", file=sys.stderr)
@@ -275,7 +398,11 @@ def main() -> int:
         probe_matrix(a, b)
         probe_best2(best2_cases(A, B))
     probe_best2(best2_cases(*LARGER))
-    probe_best2(best2_path_cases())
+    from ..io.vocabulary import default_vocabulary
+    voc = default_vocabulary()
+    probe_best2(best2_path_cases(voc=voc))
+    for kind, desc, valid in bow_cases(voc):
+        bow_row(lib, voc, kind, desc, valid, reps=20)
     return 0
 
 

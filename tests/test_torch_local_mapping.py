@@ -16,6 +16,7 @@ entries, translation in m); the same keyframes culled.
 """
 import numpy as np
 import pytest
+import torch
 
 from orbslam2_tpu.local_mapping import LocalMapper as JMapper
 from orbslam2_tpu.map.mapstate import MapState as JMap
@@ -78,11 +79,55 @@ def test_stage_times_recorded(mapped):
 
 
 def test_hooks_not_ported_raise():
+    """Loop closing is still refused; the keyframe database and the BoW
+    encoder are taken, and a keyframe registered through them is in the
+    database with its gate nodes."""
     _, cfg_t = configs()
     mp = TMap(cfg_t, 512)
-    for kw in ({"loop_closer": object()}, {"kf_db": object()}, {"bow_encode": len}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*13 and 14"):
-            TMapper(cfg_t, mp, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        TMapper(cfg_t, mp, loop_closer=object())
+    calls = []
+
+    class DB:
+        def add(self, kf, vec):
+            calls.append((kf, vec))
+
+    class Encoder:
+        def frame_bow(self, desc, valid):
+            return "vec", np.arange(len(valid), dtype=np.int32)
+
+    lm = TMapper(cfg_t, mp, kf_db=DB(), bow_encode=Encoder())
+    lm.register_keyframe(3)
+    assert calls == [(3, "vec")] and lm.counters["kfs_registered"] == 1
+    np.testing.assert_array_equal(mp.kf_bow_node[3], np.arange(512))
+    TMapper(cfg_t, mp).register_keyframe(4)  # no database: nothing happens
+    assert (mp.kf_bow_node[4] == -1).all()
+
+
+@pytest.mark.parametrize("with_bow,with_refined", [(True, True), (True, False),
+                                                   (False, True), (False, False)])
+def test_prep_reads_bow_and_refinement_back_together(with_bow, with_refined):
+    """The keyframe prep's one readback returns the BoW triple and the
+    refinement's offsets as they were on the device, bit for bit."""
+    rng = np.random.default_rng(4)
+    words = rng.integers(0, 150000, 64).astype(np.int32)
+    ok = rng.random(64) < 0.9
+    nodes = rng.integers(-1, 133, 64).astype(np.int32)
+    feats = np.arange(0, 40, 2)
+    delta = rng.normal(0, 1, (20, 2)).astype(np.float32)
+    r_ok = rng.random(20) < 0.5
+    bow = tuple(torch.from_numpy(a) for a in (words, ok, nodes)) if with_bow else None
+    refined = (feats, torch.from_numpy(delta), torch.from_numpy(r_ok)) if with_refined else None
+    got_bow, got_refined = TMapper._fetch_prep(bow, refined)
+    assert (got_bow is None) == (not with_bow) and (got_refined is None) == (not with_refined)
+    if with_bow:
+        for got, want in zip(got_bow, (words, ok, nodes)):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    if with_refined:
+        assert got_refined[0] is feats
+        np.testing.assert_array_equal(got_refined[1], delta)
+        np.testing.assert_array_equal(got_refined[2], r_ok)
 
 
 def test_remove_keyframe_and_retired_pose(tmp_path):

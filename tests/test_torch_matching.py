@@ -214,3 +214,58 @@ def test_match_descriptors_ratio():
     _eq(JFM.match_descriptors_ratio(*map(jnp.asarray, args)),
         TFM.match_descriptors_ratio(*map(_t, args)))
     assert P > 0
+
+
+def _bow_args(desc_a, valid_a, angle_a, node_a, desc_b, valid_b, angle_b, node_b):
+    args = (desc_a, valid_a, angle_a, node_a, desc_b, valid_b, angle_b, node_b)
+    return [jnp.asarray(a) for a in args], [_t(a) for a in args]
+
+
+def test_match_by_bow_equals_jax_with_ties_and_invalid_rows():
+    """Node-gated SearchByBoW: features spread over 7 nodes (some unassigned),
+    duplicated descriptors that tie the best columns, invalid rows on both
+    sides, angles over several histogram bins."""
+    rng = np.random.default_rng(11)
+    A, B = 96, 80
+    desc_b = rng.integers(0, 2 ** 32, (B, 8), dtype=np.uint32)
+    desc_b[1::4] = desc_b[0::4]                      # tied columns
+    desc_a = desc_b[rng.integers(0, B, A)].copy()
+    desc_a[::3, 0] ^= np.uint32(0x0F0F)              # a few bits off
+    node_b = rng.integers(-1, 7, B).astype(np.int32)
+    node_a = rng.integers(-1, 7, A).astype(np.int32)
+    valid_a, valid_b = rng.random(A) < 0.9, rng.random(B) < 0.9
+    angle_a = rng.choice([0.0, 0.3, 2.0], A).astype(np.float32)
+    angle_b = rng.choice([0.0, 0.3, 2.0], B).astype(np.float32)
+    j, t = _bow_args(desc_a, valid_a, angle_a, node_a, desc_b, valid_b, angle_b, node_b)
+    jres, tres = JFM.match_by_bow(*j), TFM.match_by_bow(*t)
+    _eq(jres, tres)
+    idx = tres.idx.numpy()
+    m = idx >= 0
+    assert m.sum() > 5
+    assert (node_a[m] == node_b[idx[m]]).all() and (node_a[m] >= 0).all()
+    assert valid_a[m].all() and valid_b[idx[m]].all()
+
+
+def test_match_by_bow_gate_blocks_cross_node_pairs():
+    rng = np.random.default_rng(5)
+    n = 64
+    desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    angle, valid = np.zeros(n, np.float32), np.ones(n, bool)
+    node = (np.arange(n) % 7).astype(np.int32)
+    shifted = ((np.arange(n) + 1) % 7).astype(np.int32)
+    j, t = _bow_args(desc, valid, angle, node, desc, valid, angle, node)
+    _eq(JFM.match_by_bow(*j), TFM.match_by_bow(*t))
+    np.testing.assert_array_equal(TFM.match_by_bow(*t).idx.numpy(), np.arange(n))
+    j, t = _bow_args(desc, valid, angle, node, desc, valid, angle, shifted)
+    _eq(JFM.match_by_bow(*j), TFM.match_by_bow(*t))
+    assert (TFM.match_by_bow(*t).idx.numpy() == -1).all()
+
+
+def test_match_by_bow_unassigned_node_never_matches():
+    rng = np.random.default_rng(6)
+    desc = rng.integers(0, 2 ** 32, (16, 8), dtype=np.uint32)
+    angle, valid = np.zeros(16, np.float32), np.ones(16, bool)
+    none = np.full(16, -1, np.int32)
+    j, t = _bow_args(desc, valid, angle, none, desc, valid, angle, none)
+    _eq(JFM.match_by_bow(*j), TFM.match_by_bow(*t))
+    assert (TFM.match_by_bow(*t).idx.numpy() == -1).all()

@@ -3,8 +3,9 @@ on the 30-frame room orbit (320x240, 500 features, doubled during
 initialization; tests/torch_slice_common.run_systems), both through
 run_sequence(pipelined=True) with the mapper inline.
 
-The JAX side has the pieces the port does not have yet switched off (the
-keyframe database, BoW, the loop closer and the relocalizer are None). Both
+The JAX side has the loop closer, which the port does not have yet,
+switched off; both Systems build the default vocabulary, the keyframe
+database and the relocalizer. Both
 initialize by the fused step (`mono_init_step`, one attempt a frame), build
 the initial map with its two-keyframe BA and median-depth scale, and then
 track; every map point after initialization comes from the mapper's
@@ -86,8 +87,7 @@ def test_initial_maps_agree(results):
     from orbslam2_tpu.system import System as JSystem
     cfg_j, cfg_t = configs("MONOCULAR")
     js = JSystem(cfg_j)
-    js.kf_db = js.local_mapper.kf_db = js.local_mapper.bow_encode = None
-    js.local_mapper.loop_closer = js.tracker.relocalizer = None
+    js.local_mapper.loop_closer = None
     ts = System(cfg_t, device="cpu")
     for stamp, d in render_sequence(synth.orbit_trajectory(N_FRAMES)[:9], "MONOCULAR"):
         pj, pt = js.track_monocular(d["image"], stamp), ts.track_monocular(d["image"], stamp)

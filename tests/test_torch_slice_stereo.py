@@ -3,8 +3,9 @@ a 30-frame stereo sweep (320x240, 500 features, the 0.5 m baseline of
 bench.py scaled with the image; tests/torch_slice_common.run_systems), both
 through run_sequence(pipelined=True) with the mapper inline.
 
-The JAX side has the pieces the port does not have yet switched off (the
-keyframe database, BoW, the loop closer and the relocalizer are None). The
+The JAX side has the loop closer, which the port does not have yet,
+switched off; both Systems build the default vocabulary, the keyframe
+database and the relocalizer. The
 right image is rendered as bench.py renders it. Every frame runs the second
 extraction and `stereo_match` inside the fused frame, the first frame
 initializes from the stereo depths, and the keyframes of the sweep run the

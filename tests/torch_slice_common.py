@@ -78,10 +78,10 @@ def render_sequence(gt, sensor: str):
 
 
 def run_systems(gt, sensor: str, with_scale: bool, pipelined: bool = True):
-    """The sequence through the JAX package's System (mapper inline; the
-    keyframe database, BoW, the loop closer and the relocalizer, which the
-    port does not have yet, set to None) and through the port's System on
-    the CPU. Returns (jax, port) results with the ATE (Sim(3)-aligned when
+    """The sequence through the JAX package's System (mapper inline, the
+    default vocabulary, keyframe database and relocalizer on; the loop
+    closer, which the port does not have yet, set to None) and through the
+    port's System on the CPU, which builds the same pieces by default. Returns (jax, port) results with the ATE (Sim(3)-aligned when
     with_scale) and the index of the first OK frame."""
     from orbslam2_tpu.system import System as JSystem
     cfg_j, cfg_t = configs(sensor)
@@ -100,8 +100,7 @@ def run_systems(gt, sensor: str, with_scale: bool, pipelined: bool = True):
 
     t0 = time.perf_counter()
     js = JSystem(cfg_j)
-    js.kf_db = js.local_mapper.kf_db = js.local_mapper.bow_encode = None
-    js.local_mapper.loop_closer = js.tracker.relocalizer = None
+    js.local_mapper.loop_closer = None
     jres = result(js, js.run_sequence(iter(items), pipelined=pipelined),
                   time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -139,7 +138,8 @@ def run_both(gt):
 
     t0 = time.perf_counter()
     slam = System(cfg_t, device="cpu")
-    slam.tracker.local_mapper = None  # mapper off, as the JAX tracker above
+    # mapper and relocalizer off, as the JAX tracker above
+    slam.tracker.local_mapper = slam.tracker.relocalizer = None
     tracked = slam.run_sequence(
         ((i / 30.0, {"image": img, "depth": d}) for i, (img, d) in enumerate(frames)),
         pipelined=False)
