@@ -6,10 +6,15 @@ Phases, each printed on its own line:
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
    exits non-zero without a CUDA device (there is no CPU path);
 2. builds the CUDA kernels from csrc/ (one nvcc per source, started
-   together, into build/), the probe library (the empty kernel and the
-   tensor-core rate loop) and the host map library (g++), and prints the
-   build time;
-3. checks each kernel against its plain PyTorch version on the card, exactly:
+   together, into build/), the probe libraries (the empty kernel and the
+   tensor-core rate loop; the first `bow_assign` kernel) and the host map
+   library (g++), and prints the build time; then runs every exactness
+   and guard-row check of phases 3 and 3c, untimed, once in a subprocess
+   under CUDA_LAUNCH_BLOCKING=1 (`--kernel-checks`), so that a launch that
+   faults is named by its caller; a non-zero exit there fails the script;
+3. checks each kernel against its plain PyTorch version on the card,
+   exactly, each output written between guard rows of a sentinel that must
+   be intact after a synchronize:
    `hamming_matrix` at [4096,1024], [1024,1024] and [1000,777];
    `hamming_best2` (index, best and second) at the same shapes under three
    kinds of mask (1% true, all true, and rows with no candidate, one
@@ -27,13 +32,17 @@ Phases, each printed on its own line:
    rate measured in this run), and for `hamming_matrix` the yardstick
    `library_ms`: one torch.matmul of the descriptors unpacked to +-1 fp16
    (unpacked outside the timed region; the package never calls it);
-   3c. `bow_assign` (the vocabulary descent, csrc/bow_assign.cu) against its
-   plain version on the full default vocabulary (168,840 nodes), exactly
-   (words, ok, gate): M = 1024 descriptors of an extracted room frame and
-   M = 2048 of a frame extracted at the monocular initialization's budget,
-   and seeded random sets of both sizes, a tenth of the rows invalid; its
-   times warm and cold, the empty kernel of its grid, its byte bound (the
-   bytes this run's descents touch) and the plain version's time;
+   3c. `bow_assign` (the vocabulary descent over the children-block table,
+   csrc/bow_assign.cu) against both plain versions (the block walk and the
+   JAX layout) on the full default vocabulary (168,840 nodes), exactly
+   (words, ok, gate), inside guard rows: M = 1024 descriptors of an
+   extracted room frame and M = 2048 of a frame extracted at the monocular
+   initialization's budget, seeded random sets of both sizes, a tenth of
+   the rows invalid, and the ragged M = 1 and 1023 (checked only); its
+   times warm and cold in turns with the first kernel
+   (csrc/bow_assign_twotrip_probe.cu) and its variants, the empty
+   kernel of its grid, its byte bound (the distinct bytes this run's
+   descents stand on) and the plain version's time;
    3d. `ops/pnp.pnp_ransac` on a seeded problem (128 points, 40 of them
    outliers, padded to the frame's 1024 rows): at least 70 inliers, at most
    2 outliers among them, the pose within 2 cm and 0.5 degrees of the truth,
@@ -88,7 +97,9 @@ Phases, each printed on its own line:
 The launch counts are set to 0 just before each path and read just after;
 both Hamming kernels must have been launched on the synchronous and on the
 pipelined path of every sensor, `bow_assign` by the mapper of every pipelined
-path that makes keyframes and by the relocalizer in phase 7. Then it prints the kernel table as one JSON line, and as the last line
+path that makes keyframes and by the relocalizer in phase 7, each time with
+the vocabulary's packed table (no call may pack it on the fly). Then it
+prints the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no "ok" line. Imports nothing of JAX.
 """
@@ -153,21 +164,27 @@ def _times(row: dict, tag: str) -> str:
             f"issue {row['bound_ops_ms']:.4f})")
 
 
-def check_hamming_matrix(CK, PH, lib, mma_per_s: float) -> dict:
+def check_hamming_matrix(CK, PH, lib, mma_per_s: float, timed: bool = True) -> dict:
     """`hamming_matrix` against its plain version on the card: exact at
-    every shape, then its times, floor, bound and the matmul yardstick."""
+    every shape, written between guard rows that must stay intact; then,
+    if `timed`, its times, floor, bound and the matmul yardstick."""
     rng = np.random.default_rng(0)
     rows = {}
     for A, B in HAMMING_SHAPES:
         a = torch.from_numpy(PH.descriptors(rng, A)).cuda()
         b = torch.from_numpy(PH.descriptors(rng, B)).cuda()
-        got = CK.hamming_matrix(a, b)
-        torch.cuda.synchronize()
+        buf = PH.guarded(A, torch.int32, (B,))
+        got = CK.hamming_matrix(a, b, out=buf[1])
+        PH.check_guards(f"hamming_matrix [{A},{B}]", [buf])
         ref = CK.hamming_matrix_ref(a, b)
         err = int((got - ref).abs().max().item())
         if err != 0:
             raise AssertionError(f"hamming_matrix disagrees at [{A},{B}]: "
                                  f"max abs err {err}")
+        if not timed:
+            print(f"phase 3: hamming_matrix [{A},{B}] exact, guard rows intact",
+                  flush=True)
+            continue
         # the yardstick: +-1 fp16 bits, dot = 256 - 2 hamming (exact in fp16
         # products, f32 accumulation); only the matmul is timed
         shifts = torch.arange(32, device="cuda", dtype=torch.int32)
@@ -201,20 +218,26 @@ def check_hamming_matrix(CK, PH, lib, mma_per_s: float) -> dict:
 
 
 def best2_row(CK, PH, lib, mma_per_s: float, kind: str, a_np, b_np, cand_np,
-              cold: bool, reps: int) -> dict:
+              cold: bool, reps: int, timed: bool = True) -> dict:
     """One case of `hamming_best2` against its plain version on the card:
-    index, best and second exact, then its times, floor and bound. The
+    index, best and second exact, each written between guard rows that
+    must stay intact; then, if `timed`, its times, floor and bound. The
     bound counts the mma of the 16x64 chunks whose mask is not empty: the
     others are skipped."""
     A, B = cand_np.shape
     a, b, cand = (torch.from_numpy(x).cuda() for x in (a_np, b_np, cand_np))
-    got = CK.hamming_best2(a, b, cand)
-    torch.cuda.synchronize()
+    bufs = [PH.guarded(A, torch.int32) for _ in range(3)]
+    got = CK.hamming_best2(a, b, cand, out=[view for _, view in bufs])
+    PH.check_guards(f"hamming_best2 [{A},{B}] {kind}", bufs)
     ref = CK.hamming_best2_ref(a, b, cand)
     err = max(int((x - y).abs().max().item()) for x, y in zip(got, ref))
     if err != 0:
         raise AssertionError(f"hamming_best2 disagrees at [{A},{B}], {kind} "
                              f"mask: max abs err {err} over idx, best, second")
+    if not timed:
+        print(f"phase 3: hamming_best2 [{A},{B}] {kind} mask exact, guard rows "
+              "intact", flush=True)
+        return dict(err=err)
     padded = torch.nn.functional.pad(cand, (0, -B % 64, 0, -A % 16))
     chunks = int(padded.view(-(-A // 16), 16, -(-B // 64), 64)
                  .any(dim=3).any(dim=1).sum().item())
@@ -240,7 +263,7 @@ def best2_row(CK, PH, lib, mma_per_s: float, kind: str, a_np, b_np, cand_np,
     return row
 
 
-def check_hamming_best2(CK, PH, lib, mma_per_s: float, voc) -> dict:
+def check_hamming_best2(CK, PH, lib, mma_per_s: float, voc, timed: bool = True) -> dict:
     """`hamming_best2` at every shape and mask kind (cold on the sparse
     mask), at the stereo and the monocular-initialization case, and under
     the same-node mask of `match_by_bow` on vocabulary `voc`."""
@@ -248,23 +271,35 @@ def check_hamming_best2(CK, PH, lib, mma_per_s: float, voc) -> dict:
     for A, B in HAMMING_SHAPES:
         for kind, a_np, b_np, cand_np in PH.best2_cases(A, B, seed=0):
             rows[(A, B, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np, b_np,
-                                           cand_np, cold=kind == "sparse", reps=10)
+                                           cand_np, cold=kind == "sparse", reps=10,
+                                           timed=timed)
     for kind, a_np, b_np, cand_np in PH.best2_path_cases(seed=0, voc=voc):
         rows[(*cand_np.shape, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np,
-                                                 b_np, cand_np, cold=True, reps=10)
+                                                 b_np, cand_np, cold=True, reps=10,
+                                                 timed=timed)
     return rows
 
 
-def check_bow_assign(PH, lib, voc, frames: dict) -> dict:
-    """`bow_assign` against its plain version on the full vocabulary: the
-    extracted frames' descriptors (with every tenth valid row declared
-    invalid) and the seeded random sets."""
+def check_bow_assign(PH, lib, twotrip, voc, frames: dict, timed: bool = True) -> dict:
+    """`bow_assign` against both plain versions on the full vocabulary,
+    inside guard rows: the extracted frames' descriptors (with every tenth
+    valid row declared invalid), the seeded random sets, and the ragged
+    M = 1 and 1023 (checked only); timed (if `timed`) in turns with the
+    first kernel and the variants."""
     rows = {}
-    cases = [(f"room-frame-{len(d)}", d, v & (np.arange(len(d)) % 10 != 0))
-             for d, v in frames.values()] + list(PH.bow_cases(voc, seed=0))
-    for kind, desc, valid in cases:
-        print("phase 3c: ", end="")
-        rows[kind] = PH.bow_row(lib, voc, kind, np.ascontiguousarray(desc), valid)
+    cases = [(f"room-frame-{len(d)}", d, v & (np.arange(len(d)) % 10 != 0), timed)
+             for d, v in frames.values()]
+    cases += [(*c, timed) for c in PH.bow_cases(voc, seed=0)]
+    cases += [(*c, False) for c in PH.bow_cases(voc, seed=1, sizes=(1, 1023))]
+    for kind, desc, valid, timed_case in cases:
+        if timed_case:
+            print("phase 3c: ", end="")
+        rows[kind] = PH.bow_row(lib, twotrip, voc, kind, np.ascontiguousarray(desc),
+                                valid, timed=timed_case)
+        if not timed_case:
+            print(f"phase 3c: bow_assign M={len(desc)} ({kind}) exact against both "
+                  "plain versions, the first kernel and the variants; guard rows "
+                  "intact", flush=True)
     return rows
 
 
@@ -484,6 +519,12 @@ def run_sequence(P, CK, evaluation, tag: str, name: str, items, gt: np.ndarray,
 
 
 def launch_counts(CK) -> dict:
+    """Each kernel's launches by caller since the counts were reset. Fails
+    if a `bow_assign` call of that run packed its table on the fly: the
+    main path hands the kernel the vocabulary's packed table."""
+    if CK.bow_assign.packed_on_the_fly:
+        raise AssertionError(f"{CK.bow_assign.packed_on_the_fly} bow_assign calls "
+                             "packed the children-block table on the fly")
     return {name: dict(getattr(CK, name).launches_by) for name in KERNELS}
 
 
@@ -797,11 +838,49 @@ def check_block_sync_free(P, items, cfg, sensor: str) -> None:
           flush=True)
 
 
+def kernel_checks() -> int:
+    """Phases 3 and 3c without their timings: every exactness and guard-row
+    check of the three kernels (the room frames aside). main() runs it in a
+    subprocess under CUDA_LAUNCH_BLOCKING=1, so that a launch that faults
+    is named by the call that made it."""
+    from orbslam2_tpu_torch.io.vocabulary import default_vocabulary
+    from orbslam2_tpu_torch.ops import cuda_kernels as CK
+    from orbslam2_tpu_torch.utils import probe_hamming as PH
+    CK.build_kernels()
+    lib, twotrip = PH.probe_lib(), PH.twotrip_lib()
+    voc = default_vocabulary()
+    check_hamming_matrix(CK, PH, lib, 0.0, timed=False)
+    check_hamming_best2(CK, PH, lib, 0.0, voc, timed=False)
+    check_bow_assign(PH, lib, twotrip, voc, {}, timed=False)
+    torch.cuda.synchronize()
+    return 0
+
+
+def blocking_kernel_checks() -> None:
+    """kernel_checks() in a subprocess under CUDA_LAUNCH_BLOCKING=1; its
+    lines are printed, and a non-zero exit fails the script."""
+    import os
+    import subprocess
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--kernel-checks"],
+                          env={**os.environ, "CUDA_LAUNCH_BLOCKING": "1"},
+                          capture_output=True, text=True, timeout=600)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        print(f"phase 3 (CUDA_LAUNCH_BLOCKING=1): {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the kernel checks under CUDA_LAUNCH_BLOCKING=1 exited "
+                             f"{proc.returncode}")
+    print(f"phase 3: the kernel checks under CUDA_LAUNCH_BLOCKING=1 passed in a "
+          f"subprocess in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("phase 1: no CUDA device: this script runs only on the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--kernel-checks"]:
+        return kernel_checks()
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
@@ -821,15 +900,17 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # every nvcc and the g++ at once
+    with ThreadPoolExecutor(3) as pool:  # every nvcc and the g++ at once
         probe = pool.submit(PH.probe_lib)
+        first = pool.submit(PH.twotrip_lib)
         host = pool.submit(native.available)
         CK.build_kernels()
-        lib = probe.result()
+        lib, twotrip = probe.result(), first.result()
         if not host.result():
             raise RuntimeError("host map library (native/mapops.cpp) did not build")
     print(f"phase 2: built in {time.perf_counter() - t0:.2f} s "
           f"(compile seconds by library: {_build.build_seconds})", flush=True)
+    blocking_kernel_checks()
 
     mma_per_s = PH.mma_per_second(lib)
     if mma_per_s is None:
@@ -857,7 +938,7 @@ def main() -> int:
         feats = FT.extract_orb(img0, dataclasses.replace(orb, n_features=n_feat),
                                scene.height, scene.width)
         extracted[n_feat] = (feats.desc.cpu().numpy(), feats.valid.cpu().numpy())
-    bow = check_bow_assign(PH, lib, voc, extracted)
+    bow = check_bow_assign(PH, lib, twotrip, voc, extracted)
     check_pnp(PNP)
     check_ba(BA)
     mono_orbit = synth.orbit_trajectory(MONO_FRAMES)
@@ -968,15 +1049,28 @@ def main() -> int:
         if kind in ("stereo-band", "init-window", "node-gate", "node-gate-mono")]
     # bow_assign at the mapper's and the relocalizer's shape: an extracted
     # frame's 1024 rows. It has no Pallas source: the XLA program
-    # assign_words computes the same descent (no single PyTorch call does)
+    # assign_words computes the same descent (no single PyTorch call does).
+    # Beside it the first kernel and the variants, timed in turns
+    def bow_times(r: dict) -> dict:
+        return {"first_kernel": {
+                    "source": "orbslam2_tpu_torch/csrc/bow_assign_twotrip_probe.cu",
+                    "ms": r["old_ms"], "device_ms": r["old_dev"],
+                    "cold_device_ms": r["old_cold"]},
+                "variants": {name: {"device_ms": t["dev"], "cold_device_ms": t["cold"],
+                                    "floor_ms": t["floor"]}
+                             for name, t in r["variants"].items()},
+                "block_table_bytes": r["block_bytes"], "distinct_bytes": r["bytes"]}
+
     row_c = bow["room-frame-1024"]
     entry_c = entry("bow_assign", "orbslam2_tpu_torch/csrc/bow_assign.cu", row_c, bow,
                     None, replaces="orbslam2_tpu/ops/bow.py:28")
+    entry_c.update(bow_times(row_c))
     entry_c["other_shapes"] = [
         {"case": kind, "shape": r["shape"], "ms": r["ms"], "device_ms": r["dev"],
          "cold_device_ms": r["cold"], "floor_ms": r["floor"],
          "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
-         "bound_by": "bytes"} for kind, r in bow.items() if r is not row_c]
+         "bound_by": "bytes", **bow_times(r)}
+        for kind, r in bow.items() if r is not row_c and "dev" in r]
     print(json.dumps({"kernels": [
         entry("hamming_matrix", "orbslam2_tpu_torch/csrc/hamming.cu", row_a, ham,
               row_a["library_ms"]), entry_b, entry_c]}), flush=True)

@@ -12,6 +12,10 @@ keeps its own copy so that it imports nothing of the JAX package.
   as uint32 words (the file format of both packages); `device_tables` gives
   the int32 bit-views the port's device code takes, `device_tables_on`
   uploads them once per device.
+- `pack_child_blocks`: the same tree as the children-block table that the
+  `bow_assign` kernel descends (one 48-byte row per child of a node that
+  steps, so that a level costs one dependent load); `Vocabulary.child_blocks`
+  packs it once per vocabulary, `child_blocks_on` uploads it once per device.
 - `default_vocabulary`: the vocabulary shipped with the package
   (data/vocab_default.npz, the same file as the JAX package's).
 - `train_vocabulary`: hierarchical k-medians (k-means over Hamming space
@@ -25,13 +29,23 @@ same bits.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from ..utils.device import upload_and_wait
+
 DEFAULT_VOCAB = Path(__file__).resolve().parent.parent / "data" / "vocab_default.npz"
+# int32 words of one row of the children-block table: the child's 8
+# descriptor words, then its block, its word, its node id and a pad word
+BLOCK_ROW = 12
+ROW_BLOCK, ROW_WORD, ROW_NODE = 8, 9, 10
+# serializes every vocabulary's check-and-fill of its device uploads
+_UPLOAD_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=1)
@@ -50,8 +64,10 @@ class Vocabulary:
     node_word: np.ndarray       # [N] int32 word id for leaves, -1 otherwise
     word_weight: np.ndarray     # [W] float32 idf weights
     word_node: np.ndarray       # [W] int32 leaf node of each word
-    # device_tables_on's uploads, by device
+    # the uploads of device_tables_on and child_blocks_on, by (what, device),
+    # and the host children-block table
     _on_device: dict = field(default_factory=dict, repr=False, compare=False)
+    _blocks: Any = field(default=None, repr=False, compare=False)
 
     @property
     def n_words(self) -> int:
@@ -68,13 +84,36 @@ class Vocabulary:
     def device_tables_on(self, device):
         """`device_tables()` as tensors on `device`, uploaded on the first
         call for that device and shared by every caller after it (they are
-        read-only). The first call waits for its copies, so any stream may
-        read the tensors once it has returned."""
-        key = str(device)
-        if key not in self._on_device:
-            self._on_device[key] = tuple(torch.from_numpy(a).to(device)
-                                         for a in self.device_tables())
-        return self._on_device[key]
+        read-only). The check and the upload hold a lock, and the tensors are
+        published only once their copies have finished, so any thread and
+        any stream may read them."""
+        return self._uploaded("tables", device, lambda: tuple(
+            upload_and_wait(a, device) for a in self.device_tables()))
+
+    def child_blocks(self) -> "ChildBlocks":
+        """The children-block table of this tree (`pack_child_blocks`, a
+        numpy table), packed on the first call."""
+        with _UPLOAD_LOCK:
+            if self._blocks is None:
+                self._blocks = pack_child_blocks(*self.device_tables())
+            return self._blocks
+
+    def child_blocks_on(self, device) -> "ChildBlocks":
+        """`child_blocks()` with its table on `device`, uploaded once per
+        device as `device_tables_on` does."""
+        blocks = self.child_blocks()
+        return self._uploaded("blocks", device, lambda: blocks._replace(
+            table=upload_and_wait(blocks.table, device)))
+
+    def _uploaded(self, what: str, device, make):
+        key = (what, str(device))
+        got = self._on_device.get(key)
+        if got is None:
+            with _UPLOAD_LOCK:
+                got = self._on_device.get(key)
+                if got is None:
+                    got = self._on_device[key] = make()
+        return got
 
     def save(self, path):
         np.savez_compressed(
@@ -88,6 +127,68 @@ class Vocabulary:
         return Vocabulary(int(z["k"]), int(z["levels"]), z["node_desc"],
                           z["node_children"], z["node_word"],
                           z["word_weight"], z["word_node"])
+
+
+class ChildBlocks(NamedTuple):
+    """The vocabulary tree as the `bow_assign` kernel descends it.
+
+    Every node that steps in the descent (it has a child and no word: the
+    stop rule of orbslam2_tpu/ops/bow.py assign_words) owns one block of k
+    rows; row c describes the node's child c in BLOCK_ROW int32 words: the
+    child's 8 descriptor words, the child's own block (-1 where the child
+    would not step), its word (-1 for none) and its node id, and a pad
+    word. A row whose node id is -1 is no child (all its words -1 but the
+    zero descriptor). Blocks are numbered breadth-first from the root's,
+    so the blocks of depth 0 and 1 are the first `n_top` ones."""
+    table: Any          # [n_blocks, k, BLOCK_ROW] int32: numpy, or a tensor
+    root_block: int     # the root's block, -1 if the root does not step
+    root_word: int      # the root's word (-1 for none)
+    n_top: int          # blocks of the root and of its children
+
+
+def pack_child_blocks(node_desc, node_children, node_word) -> ChildBlocks:
+    """Pack a tree given as the arrays of `Vocabulary.device_tables` (node
+    descriptors [N, 8] as uint32 or int32 words, children [N, k] with -1
+    pads, words [N] with -1 for inner nodes) into its children-block table.
+    Only nodes reached from the root get a block; sibling ids need not be
+    contiguous, and a tree with a cycle is refused."""
+    desc = np.ascontiguousarray(node_desc).view(np.int32)
+    children = np.asarray(node_children, np.int32)
+    word = np.asarray(node_word, np.int32)
+    n, k = children.shape
+    if desc.shape != (n, 8) or word.shape != (n,):
+        raise ValueError(f"tree arrays disagree: node_desc {desc.shape}, "
+                         f"node_children {children.shape}, node_word {word.shape}")
+    if ((children < -1) | (children >= n)).any():
+        raise ValueError("node_children: ids outside [-1, N)")
+    steps = (children >= 0).any(axis=1) & (word < 0)
+    block_of = np.full(n, -1, np.int32)
+    seen = np.zeros(n, bool)
+    order, n_blocks, n_top = [], 0, 0
+    frontier = np.zeros(1, np.int64)
+    for depth in range(n + 1):  # a tree of n nodes is at most n deep
+        if not frontier.size:
+            break
+        if seen[frontier].any() or len(np.unique(frontier)) < frontier.size:
+            raise ValueError("node_children: not a tree (a node is reached twice)")
+        seen[frontier] = True
+        parents = frontier[steps[frontier]]
+        block_of[parents] = np.arange(n_blocks, n_blocks + len(parents))
+        n_blocks += len(parents)
+        n_top += len(parents) if depth <= 1 else 0
+        order.append(parents)
+        ch = children[parents].ravel()
+        frontier = ch[ch >= 0].astype(np.int64)
+    parents = np.concatenate(order)
+    ch = children[parents]                                   # [n_blocks, k]
+    has = ch >= 0
+    c = np.where(has, ch, 0)
+    table = np.zeros((len(parents), k, BLOCK_ROW), np.int32)
+    table[..., :8] = np.where(has[..., None], desc[c], 0)
+    table[..., ROW_BLOCK] = np.where(has, block_of[c], -1)
+    table[..., ROW_WORD] = np.where(has, word[c], -1)
+    table[..., ROW_NODE] = ch
+    return ChildBlocks(table, int(block_of[0]), int(word[0]), n_top)
 
 
 def _unpack_bits(desc: np.ndarray) -> np.ndarray:

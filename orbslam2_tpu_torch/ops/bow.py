@@ -9,7 +9,8 @@ weights, L1-normalized), which turns place-recognition scoring
 (DBoW2/ScoringObject.cpp L1 scoring) into a matrix-vector form.
 
 Descriptors and node descriptors are [*, 8] int32 bit-views
-(io/vocabulary.Vocabulary.device_tables).
+(io/vocabulary.Vocabulary.device_tables); the kernel descends the same tree
+packed as a children-block table (Vocabulary.child_blocks_on).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from .cuda_kernels import bow_assign
 GATE_DEPTH = 2
 
 
-def assign_words(node_desc, node_children, node_word, desc, valid, levels: int):
+def assign_words(node_desc, node_children, node_word, desc, valid, levels: int,
+                 blocks=None):
     """Tree descent for all descriptors at once.
 
     node_desc: [N, 8] int32; node_children: [N, k] int32 (-1 pad);
@@ -33,9 +35,11 @@ def assign_words(node_desc, node_children, node_word, desc, valid, levels: int):
     [M] bool. Returns (word ids [M] int32 (0 where invalid), ok [M] bool,
     gate node ids [M] int32: the node reached at depth GATE_DEPTH, the
     reference's FeatureVector entry used for node-gated SearchByBoW, -1
-    where invalid)."""
+    where invalid). blocks: the tree's children-block table on desc's
+    device (Vocabulary.child_blocks_on); the main path passes it, a call
+    without it packs the table on the fly (cuda_kernels.bow_assign)."""
     return bow_assign(node_desc, node_children, node_word, desc, valid,
-                      levels, GATE_DEPTH)
+                      levels, GATE_DEPTH, blocks=blocks)
 
 
 def bow_vector(words, wvalid, word_weight, n_words: int):

@@ -17,14 +17,18 @@ ctypes:
 - `bow_assign` (csrc/bow_assign.cu): the vocabulary-tree descent of
   orbslam2_tpu/ops/bow.py `assign_words` (an XLA program with an inline
   XOR-popcount over gathered children, no Pallas source), one warp a
-  descriptor. Plain version `bow_assign_ref`.
+  descriptor, over the tree's children-block table
+  (io/vocabulary.pack_child_blocks): one dependent load a level. Plain
+  versions `bow_assign_blocks_ref` (the same table) and `bow_assign_ref`
+  (the JAX package's layout).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs its plain version, which is also what tests and chip_smoke.py compare
 the kernel with. `<wrapper>.launches` counts kernel launches, and
 `<wrapper>.launches_by` splits them by caller: the launches a thread makes
 inside `launches_counted_as(name)` count under `name`, the others under
-"tracker".
+"tracker". Every wrapper takes `out=`, tensors to write its results into
+(chip_smoke.py puts guard rows around them), checked like its inputs.
 
 Descriptors are [N, 8] int32 tensors holding the bit patterns of the 8
 uint32 words (PyTorch has no popcount and no uint32 shifts on the CPU); the
@@ -41,6 +45,8 @@ import numpy as np
 import torch
 
 from .._build import PKG_DIR, build_library
+from ..io.vocabulary import (BLOCK_ROW, ROW_BLOCK, ROW_NODE, ROW_WORD,
+                             ChildBlocks, pack_child_blocks)
 from ..utils.device import constant
 
 DESC_WORDS = 8
@@ -54,6 +60,9 @@ MAX_COLUMNS = 1 << 22
 _CSRC = PKG_DIR / "csrc"
 _TILE_HEADER = _CSRC / "hamming_tile.cuh"
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# most rows of the children-block table that bow_assign stages in shared
+# memory (48 KB)
+MAX_TOP_ROWS = 1024
 # library name -> (source, headers it includes, launch function, its
 # argument types)
 _KERNELS = {
@@ -63,7 +72,7 @@ _KERNELS = {
                       "hamming_best2_launch",
                       [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR]),
     "bow_assign": (_CSRC / "bow_assign.cu", (), "bow_assign_launch",
-                   [_PTR] * 8 + [_INT] * 4 + [_PTR]),
+                   [_PTR] * 6 + [_INT] * 7 + [_PTR]),
 }
 _launchers: dict = {}
 _load_lock = threading.Lock()
@@ -129,6 +138,31 @@ def _check_pair(desc_a: torch.Tensor, desc_b: torch.Tensor) -> None:
                          f"got {desc_b.shape[0]}")
 
 
+def _outputs(name: str, out, specs, device: torch.device, align: int = 4):
+    """The output tensors of a wrapper: new ones, or the caller's `out`
+    after checking each against its (shape, dtype) in `specs`: on `device`,
+    contiguous and `align`-byte aligned."""
+    if out is None:
+        return [torch.empty(shape, dtype=dtype, device=device) for shape, dtype in specs]
+    out = list(out) if isinstance(out, (tuple, list)) else [out]
+    if len(out) != len(specs):
+        raise ValueError(f"{name}: out= takes {len(specs)} tensors, got {len(out)}")
+    for t, (shape, dtype) in zip(out, specs):
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: out= expected {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: out= must be contiguous on {device}")
+        if device.type == "cuda" and t.data_ptr() % align != 0:
+            raise ValueError(f"{name}: out= must be {align}-byte aligned")
+    return out
+
+
+def _plain_into(out, results) -> tuple:
+    """The plain version's results written into the outputs."""
+    return tuple(o.copy_(r) for o, r in zip(out, results))
+
+
 def _launch(wrapper, name: str, device: torch.device, *args) -> None:
     """Launch library `name`'s kernel on `device`'s current stream, raise on
     a refused launch, and count the launch on `wrapper`."""
@@ -159,13 +193,16 @@ def hamming_matrix_ref(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tens
     return out
 
 
-def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """[A, 8] int32 x [B, 8] int32 -> [A, B] int32 Hamming distances."""
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """[A, 8] int32 x [B, 8] int32 -> [A, B] int32 Hamming distances (into
+    `out`, 16-byte aligned on a card, when given)."""
     _check_pair(desc_a, desc_b)
-    if desc_a.device.type == "cpu":
-        return hamming_matrix_ref(desc_a, desc_b)
     A, B = desc_a.shape[0], desc_b.shape[0]
-    out = torch.empty((A, B), dtype=torch.int32, device=desc_a.device)
+    (out,) = _outputs("hamming_matrix", out, [((A, B), torch.int32)],
+                      desc_a.device, align=16)
+    if desc_a.device.type == "cpu":
+        return out.copy_(hamming_matrix_ref(desc_a, desc_b))
     if A == 0 or B == 0:
         return out  # nothing to compute: no launch
     _launch(hamming_matrix, "hamming", desc_a.device, desc_a.data_ptr(),
@@ -193,7 +230,7 @@ def hamming_best2_ref(desc_a: torch.Tensor, desc_b: torch.Tensor,
 
 
 def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
-                  cand: torch.Tensor):
+                  cand: torch.Tensor, out=None):
     """Best and second-best Hamming match of every row of desc_a among the
     candidate columns of desc_b, without the [A, B] distances in memory.
 
@@ -202,7 +239,7 @@ def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     row's candidates, the lowest column that attains it, and the lowest
     distance over all other columns (equal to best on a tie). A row without
     a candidate gives idx 0 and best = second = BIG; a row with one candidate
-    second = BIG."""
+    second = BIG. `out`: three [A] int32 tensors to write them into."""
     _check_pair(desc_a, desc_b)
     A, B = desc_a.shape[0], desc_b.shape[0]
     if cand.dtype != torch.bool:
@@ -215,12 +252,14 @@ def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
         raise ValueError("cand: the mask must be contiguous")
     if B == 0:
         raise ValueError("desc_b: no best match among 0 descriptors")
+    if out is None:
+        out = torch.empty((3, A), dtype=torch.int32, device=desc_a.device).unbind(0)
+    idx, best, second = _outputs("hamming_best2", out, [((A,), torch.int32)] * 3,
+                                 desc_a.device)
     if desc_a.device.type == "cpu":
-        return hamming_best2_ref(desc_a, desc_b, cand)
+        return _plain_into([idx, best, second], hamming_best2_ref(desc_a, desc_b, cand))
     if B % 16 == 0 and cand.data_ptr() % 16 != 0:
         raise ValueError("cand: the mask must be 16-byte aligned")
-    idx, best, second = torch.empty((3, A), dtype=torch.int32,
-                                    device=desc_a.device).unbind(0)
     if A == 0:
         return idx, best, second  # nothing to compute: no launch
     _launch(hamming_best2, "hamming_best2", desc_a.device, desc_a.data_ptr(),
@@ -229,23 +268,28 @@ def hamming_best2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     return idx, best, second
 
 
+def _popcount_dist(a: torch.Tensor, desc: torch.Tensor) -> torch.Tensor:
+    """Hamming distances of [M, k, 8] descriptor words to the [M, 8] rows of
+    `desc`, by the byte popcount table of `hamming_matrix_ref`: [M, k]."""
+    table = constant("popcount8", _popcount8, desc.device)
+    x = torch.bitwise_xor(a, desc[:, None, :])
+    return table[x.contiguous().view(torch.uint8).to(torch.int32)].sum(
+        -1, dtype=torch.int32)
+
+
 def bow_assign_ref(node_desc: torch.Tensor, node_children: torch.Tensor,
                    node_word: torch.Tensor, desc: torch.Tensor,
                    valid: torch.Tensor, levels: int, gate_depth: int):
-    """Plain version of `bow_assign`: the level loop of
-    orbslam2_tpu/ops/bow.py assign_words, with the byte popcount table of
-    `hamming_matrix_ref` in place of a popcount instruction."""
+    """Plain version of `bow_assign` on the JAX package's layout of the
+    tree: the level loop of orbslam2_tpu/ops/bow.py assign_words, with the
+    byte popcount table of `hamming_matrix_ref` in place of a popcount
+    instruction."""
     M = desc.shape[0]
-    dev = desc.device
-    table = constant("popcount8", _popcount8, dev)
-    nid = torch.zeros(M, dtype=torch.int64, device=dev)
+    nid = torch.zeros(M, dtype=torch.int64, device=desc.device)
     gate = nid
     for lv in range(levels):
         ch = node_children[nid]                                  # [M, k]
-        ch_desc = node_desc[ch.clamp(min=0).long()]              # [M, k, 8]
-        x = torch.bitwise_xor(ch_desc, desc[:, None, :])
-        bytes_ = x.contiguous().view(torch.uint8).to(torch.int32)
-        dist = table[bytes_].sum(-1, dtype=torch.int32)
+        dist = _popcount_dist(node_desc[ch.clamp(min=0).long()], desc)
         dist = torch.where(ch >= 0, dist, BIG)
         best = ch.gather(1, dist.argmin(dim=1, keepdim=True))[:, 0].long()
         step = (ch >= 0).any(dim=1) & (node_word[nid] < 0)
@@ -258,9 +302,60 @@ def bow_assign_ref(node_desc: torch.Tensor, node_children: torch.Tensor,
             torch.where(ok, gate.to(torch.int32), -1))
 
 
+def bow_assign_blocks_ref(blocks: ChildBlocks, desc: torch.Tensor,
+                          valid: torch.Tensor, levels: int, gate_depth: int):
+    """Plain version of `bow_assign` on the children-block table, the
+    kernel's own walk: at each level the rows of the current block, the
+    first row of lowest distance (an empty row at BIG), and that row's
+    block, word and node id; a descent whose block is -1 stays where it is."""
+    M = desc.shape[0]
+    dev = desc.device
+    blk = torch.full((M,), blocks.root_block, dtype=torch.int64, device=dev)
+    word = torch.full((M,), blocks.root_word, dtype=torch.int32, device=dev)
+    node = torch.zeros(M, dtype=torch.int32, device=dev)
+    gate = node
+    for lv in range(levels):
+        rows = blocks.table[blk.clamp(min=0)]                    # [M, k, 12]
+        dist = torch.where(rows[..., ROW_NODE] >= 0,
+                           _popcount_dist(rows[..., :8], desc), BIG)
+        win = rows.gather(1, dist.argmin(dim=1)[:, None, None].expand(
+            -1, 1, BLOCK_ROW))[:, 0]                             # [M, 12]
+        step = blk >= 0
+        blk = torch.where(step, win[:, ROW_BLOCK].long(), blk)
+        word = torch.where(step, win[:, ROW_WORD], word)
+        node = torch.where(step, win[:, ROW_NODE], node)
+        if lv == gate_depth - 1:
+            gate = node
+    ok = valid & (word >= 0)
+    return torch.where(ok, word, 0), ok, torch.where(ok, gate, -1)
+
+
+def top_rows(blocks: ChildBlocks, k: int) -> int:
+    """Rows of the table that the kernel stages in shared memory: the
+    blocks of depth 0 and 1, up to MAX_TOP_ROWS."""
+    return min(blocks.n_top * k, MAX_TOP_ROWS)
+
+
+def _check_blocks(blocks: ChildBlocks, k: int, device: torch.device) -> None:
+    t = blocks.table
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 3 \
+            or tuple(t.shape[1:]) != (k, BLOCK_ROW):
+        raise ValueError(f"blocks: expected an int32 tensor [n_blocks, {k}, "
+                         f"{BLOCK_ROW}], got {getattr(t, 'dtype', type(t))} "
+                         f"{tuple(getattr(t, 'shape', ()))}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"blocks: the table must be contiguous on {device}")
+    if not -1 <= blocks.root_block < t.shape[0] or not 0 <= blocks.n_top <= t.shape[0]:
+        raise ValueError(f"blocks: root block {blocks.root_block} outside [-1, "
+                         f"{t.shape[0]}) or {blocks.n_top} top blocks of {t.shape[0]}")
+    if device.type == "cuda" and t.data_ptr() % 16 != 0:
+        raise ValueError("blocks: the table must be 16-byte aligned")
+
+
 def bow_assign(node_desc: torch.Tensor, node_children: torch.Tensor,
                node_word: torch.Tensor, desc: torch.Tensor, valid: torch.Tensor,
-               levels: int, gate_depth: int):
+               levels: int, gate_depth: int, blocks: ChildBlocks | None = None,
+               out=None):
     """Vocabulary-tree descent of every descriptor.
 
     node_desc: [N, 8] int32 bit-views; node_children: [N, k] int32 (-1 =
@@ -268,7 +363,14 @@ def bow_assign(node_desc: torch.Tensor, node_children: torch.Tensor,
     [M, 8] int32; valid: [M] bool. Returns (words [M] int32, 0 where not ok;
     ok [M] bool; gate [M] int32, the node after `gate_depth` steps, -1 where
     not ok). At each level the first child of lowest Hamming distance wins
-    (argmin's tie rule)."""
+    (argmin's tie rule).
+
+    blocks: the same tree's children-block table on desc's device
+    (Vocabulary.child_blocks_on), which the kernel descends. Without it a
+    CPU call runs the plain version on the JAX layout, and a card call packs
+    the table from the three arrays first (reading them back; counted in
+    `bow_assign.packed_on_the_fly`): for tests and foreign tables only.
+    out: (words, ok, gate) tensors to write into."""
     _check_desc("node_desc", node_desc)
     _check_desc("desc", desc)
     N, M = node_desc.shape[0], desc.shape[0]
@@ -296,19 +398,32 @@ def bow_assign(node_desc: torch.Tensor, node_children: torch.Tensor,
         raise ValueError("bow_assign: every tensor must be contiguous")
     if desc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no bow_assign kernel for device {desc.device}")
+    if out is None:
+        words, gate = torch.empty((2, M), dtype=torch.int32, device=desc.device).unbind(0)
+        out = (words, torch.empty(M, dtype=torch.bool, device=desc.device), gate)
+    words, ok, gate = _outputs("bow_assign", out, [((M,), torch.int32),
+                                                   ((M,), torch.bool),
+                                                   ((M,), torch.int32)], desc.device)
+    if blocks is not None:
+        _check_blocks(blocks, k, desc.device)
     if desc.device.type == "cpu":
-        return bow_assign_ref(node_desc, node_children, node_word, desc, valid,
-                              levels, gate_depth)
-    if node_desc.data_ptr() % 16 != 0 or desc.data_ptr() % 16 != 0:
+        plain = (bow_assign_ref(node_desc, node_children, node_word, desc, valid,
+                                levels, gate_depth) if blocks is None else
+                 bow_assign_blocks_ref(blocks, desc, valid, levels, gate_depth))
+        return _plain_into((words, ok, gate), plain)
+    if desc.data_ptr() % 16 != 0:
         raise ValueError("bow_assign: descriptors must be 16-byte aligned")
-    words, gate = torch.empty((2, M), dtype=torch.int32, device=desc.device).unbind(0)
-    ok = torch.empty(M, dtype=torch.bool, device=desc.device)
     if M == 0:
         return words, ok, gate  # nothing to compute: no launch
-    _launch(bow_assign, "bow_assign", desc.device, node_desc.data_ptr(),
-            node_children.data_ptr(), node_word.data_ptr(), desc.data_ptr(),
-            valid.data_ptr(), words.data_ptr(), ok.data_ptr(), gate.data_ptr(),
-            M, k, int(levels), int(gate_depth))
+    if blocks is None:
+        host = pack_child_blocks(*(t.cpu().numpy() for t in tensors[:3]))
+        blocks = host._replace(table=torch.from_numpy(host.table).to(desc.device))
+        with _count_lock:
+            bow_assign.packed_on_the_fly += 1
+    _launch(bow_assign, "bow_assign", desc.device, blocks.table.data_ptr(),
+            desc.data_ptr(), valid.data_ptr(), words.data_ptr(), ok.data_ptr(),
+            gate.data_ptr(), M, k, int(levels), int(gate_depth),
+            blocks.root_block, blocks.root_word, top_rows(blocks, k))
     return words, ok, gate
 
 
@@ -320,6 +435,7 @@ def reset_launch_counts() -> None:
         for wrapper in _WRAPPERS:
             wrapper.launches = 0
             wrapper.launches_by = {}
+        bow_assign.packed_on_the_fly = 0
 
 
 @contextlib.contextmanager

@@ -14,10 +14,10 @@ PnP inlier count, each pose optimization and rescue), and a `frame_bow`
 costs one readback. `Relocalizer.attempts` records what each call of
 `relocalize` did.
 
-The vocabulary tables are uploaded once per vocabulary and device
-(Vocabulary.device_tables_on), when the relocalizer is built; the copies
-have finished before the constructor returns, so the mapper's stream may
-read them too.
+The vocabulary tables and their children-block table are uploaded once per
+vocabulary and device (Vocabulary.device_tables_on, child_blocks_on), when
+the relocalizer is built; the copies have finished before the constructor
+returns, so the mapper's stream may read them too.
 """
 from __future__ import annotations
 
@@ -62,7 +62,9 @@ class Relocalizer:
         self.minimal_sets = None
         # one dict per relocalize() call (see relocalize)
         self.attempts: list[dict] = []
-        voc.device_tables_on(self.device)  # uploaded before any thread asks
+        # uploaded before any thread asks
+        voc.device_tables_on(self.device)
+        voc.child_blocks_on(self.device)
 
     def _dev(self, a) -> torch.Tensor:
         return upload(a, self.device)
@@ -75,7 +77,8 @@ class Relocalizer:
         the host arrays to frame_bow_finish."""
         nd, nc, nw = self.voc.device_tables_on(self.device)
         return BOW.assign_words(nd, nc, nw, self._dev(desc), self._dev(valid),
-                                self.voc.levels)
+                                self.voc.levels,
+                                blocks=self.voc.child_blocks_on(self.device))
 
     def frame_bow_finish(self, words, wvalid, nodes):
         """Host half of frame_bow: the sparse tf-idf vector from the fetched

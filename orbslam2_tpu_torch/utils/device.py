@@ -8,15 +8,19 @@ device programs therefore take:
   waiting, on the current stream (the pinned block is kept until the copy
   has run);
 - `constant`: a host-built table (filter weights, sampling patterns),
-  uploaded once per device and kept. The one upload waits for its copy, so
-  any stream may read the table afterwards.
+  uploaded once per device and kept. The one upload runs under a lock and
+  is waited for before the table is published (`upload_and_wait`), so any
+  thread, on any stream, may read the table once it has it.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 _CONSTANTS: dict = {}
+_CONSTANTS_LOCK = threading.Lock()
 
 
 def upload(a, device: torch.device) -> torch.Tensor:
@@ -30,12 +34,27 @@ def upload(a, device: torch.device) -> torch.Tensor:
         device, non_blocking=True)
 
 
+def upload_and_wait(a, device) -> torch.Tensor:
+    """numpy array -> tensor on `device`, returned only once the copy has
+    finished on the card: a tensor another thread may read at once, from
+    any stream."""
+    device = torch.device(device)
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return t
+
+
 def constant(key, make, device: torch.device) -> torch.Tensor:
     """The table `make()` (a numpy array) on `device`, built and uploaded on
-    the first call for (key, device) only."""
+    the first call for (key, device) only. Check and fill hold a lock, and
+    the table is published only after its upload has finished."""
     k = (key, str(device))
     t = _CONSTANTS.get(k)
     if t is None:
-        t = torch.from_numpy(np.ascontiguousarray(make())).to(device)
-        _CONSTANTS[k] = t
+        with _CONSTANTS_LOCK:
+            t = _CONSTANTS.get(k)
+            if t is None:
+                t = upload_and_wait(make(), device)
+                _CONSTANTS[k] = t
     return t

@@ -20,12 +20,15 @@ CUDA events around calls queued behind a spin kernel (utils/cuda_timing.py):
    how it grows with the pairs, and under the masks of the stereo and the
    monocular-initialization matcher and under the same-node mask of
    `match_by_bow` on the default vocabulary (`best2_path_cases`);
-5. `bow_assign` (exact first) at M = 1024 and 2048 on the default vocabulary,
-   warm and cold, beside its empty kernel, its byte bound and its plain
-   version.
+5. `bow_assign` (exact first, against both plain versions, inside guard
+   rows) at M = 1024 and 2048 on the default vocabulary, warm and cold,
+   beside its empty kernel, its byte bound and its plain version, in turns
+   with the kernel it replaced (csrc/bow_assign_twotrip_probe.cu, two
+   dependent loads a level) and with its variants (`BOW_VARIANTS`: without
+   the shared-memory copy of the top two levels, other block sizes).
 
-Every line carries numbers of this run only; the first line is the card's
-name and power limit. Imports nothing of JAX.
+`--bow` runs part 5 alone. Every line carries numbers of this run only; the
+first line is the card's name and power limit. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -46,6 +49,8 @@ from .cuda_timing import (HBM_BYTES_PER_S, card_line, cold_count, fmt_ms,
 SHAPES = ((4096, 1024), (1024, 1024), (1000, 777))
 LARGER = (4096, 2048)  # hamming_best2 only
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+GUARD = 64               # guard elements (rows for a matrix) on each side
+SENTINEL = 0x5A5A5A5A    # an int32 guard; a bool output's guard bytes: 0xA5
 _XOR_POPC = """
 __global__ void k(int* out, unsigned a, unsigned b) {
     int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
@@ -101,16 +106,19 @@ def gate_nodes(voc, desc: np.ndarray, valid: np.ndarray) -> np.ndarray:
                              voc.levels, GATE_DEPTH)[2].numpy()
 
 
-def bow_assign_bytes(voc, desc: np.ndarray, valid: np.ndarray) -> tuple[int, int]:
+def bow_assign_bytes(voc, desc: np.ndarray,
+                     valid: np.ndarray) -> tuple[int, int, int]:
     """Bytes of one `bow_assign` call on these descriptors, as (distinct,
-    touched). Both count each descriptor (32) and its valid flag (1) read and
-    its three outputs (9) written. `distinct` is what the function must move:
-    every node that some valid descriptor's descent stands on counted once
-    for the whole call, with its word id (4) and, if it is an inner node, its
-    row of children (4 k) and the descriptor (32) of every child it has; the
-    bound is made from it. `touched` counts a node once per descriptor and
-    level that visits it (the kernel descends invalid rows too): the loads
-    the kernel makes, most of which the L2 serves."""
+    touched, blocks). All count each descriptor (32) and its valid flag (1)
+    read and its three outputs (9) written. `distinct` is what the function
+    must move: every node that some valid descriptor's descent stands on
+    counted once for the whole call, with its word id (4) and, if it is an
+    inner node, its row of children (4 k) and the descriptor (32) of every
+    child it has; the bound is made from it. `touched` counts a node once
+    per descriptor and level that visits it in the JAX layout (the first
+    kernel descends invalid rows too): its loads, most of which the L2
+    serves. `blocks` is what the same descents read of the children-block
+    table: each block they expand once, k rows of 48 bytes."""
     from ..io.vocabulary import _pack_u64, _unpack_bits
     packed = _pack_u64(_unpack_bits(desc))
     node_packed = _pack_u64(_unpack_bits(voc.node_desc))
@@ -134,7 +142,34 @@ def bow_assign_bytes(voc, desc: np.ndarray, valid: np.ndarray) -> tuple[int, int
     distinct = (n * (32 + 1 + 9) + 4 * len(np.unique(np.concatenate(stood_on)))
                 + 4 * voc.k * len(expanded)
                 + 32 * int((voc.node_children[expanded] >= 0).sum()))
-    return distinct, touched
+    blocks = n * (32 + 1 + 9) + 48 * voc.k * len(expanded)
+    return distinct, touched, blocks
+
+
+def guarded(n: int, dtype: torch.dtype, tail: tuple = ()):
+    """(buffer, view): a CUDA buffer of n + 2 GUARD rows of shape `tail`
+    filled with the sentinel, and its middle n rows (contiguous, 16-byte
+    aligned whenever a row's bytes times GUARD are), to hand a kernel as its
+    output. A bool output's buffer is uint8 and the view a bool view of it."""
+    store = torch.uint8 if dtype == torch.bool else dtype
+    fill = 0xA5 if dtype == torch.bool else SENTINEL
+    buf = torch.full((n + 2 * GUARD, *tail), fill, dtype=store, device="cuda")
+    view = buf[GUARD:GUARD + n]
+    return buf, view.view(torch.bool) if dtype == torch.bool else view
+
+
+def check_guards(what: str, bufs) -> None:
+    """Raise unless every guard row of every (buffer, view) of `guarded`
+    still holds its sentinel (after a synchronize)."""
+    torch.cuda.synchronize()
+    for buf, view in bufs:
+        fill = 0xA5 if buf.dtype == torch.uint8 else SENTINEL
+        n = view.shape[0]
+        for side, rows in (("before", buf[:GUARD]), ("after", buf[GUARD + n:])):
+            bad = int((rows != fill).sum())
+            if bad:
+                raise AssertionError(f"{what}: {bad} guard elements {side} the "
+                                     "output were overwritten")
 
 
 def best2_path_cases(seed: int = 0, voc=None):
@@ -199,6 +234,28 @@ def xor_popc_compiles() -> tuple[bool, str]:
             capture_output=True, text=True, timeout=300)
     lines = (proc.stdout + proc.stderr).strip().splitlines()
     return proc.returncode == 0, lines[0] if lines else ""
+
+
+def twotrip_lib():
+    """The first bow_assign kernel (csrc/bow_assign_twotrip_probe.cu):
+    bow_assign_twotrip_launch, on the JAX layout of the tree."""
+    src = _build.PKG_DIR / "csrc" / "bow_assign_twotrip_probe.cu"
+    lib = ctypes.CDLL(str(_build.build_library("bow_assign_twotrip_probe", [src],
+                                               "nvcc")))
+    lib.bow_assign_twotrip_launch.argtypes = [_PTR] * 8 + [_INT] * 4 + [_PTR]
+    return lib
+
+
+# bow_assign_variant_launch's variants: name, warps a block
+BOW_VARIANTS = (("no copy, 4 warps", 4), ("8 warps", 8), ("32 warps", 32))
+BOW_WARPS = 16  # the kernel's
+
+
+def variant_launcher():
+    """bow_assign_variant_launch of the package's bow_assign library."""
+    fn = ctypes.CDLL(str(CK._library("bow_assign"))).bow_assign_variant_launch
+    fn.argtypes = [_INT] + [_PTR] * 6 + [_INT] * 7 + [_PTR]
+    return fn
 
 
 def probe_lib():
@@ -319,61 +376,128 @@ def probe_best2(cases) -> None:
               flush=True)
 
 
-def bow_cases(voc, seed: int = 0):
+def bow_cases(voc, seed: int = 0, sizes=(1024, 2048)):
     """Seeded inputs for `bow_assign`: (kind, desc [M, 8] int32, valid [M])
-    at M = 1024 and 2048, a tenth of the rows invalid."""
+    at each M of `sizes`, a tenth of the rows invalid."""
     rng = np.random.default_rng(seed)
-    for m in (1024, 2048):
+    for m in sizes:
         yield f"random-{m}", descriptors(rng, m), rng.random(m) < 0.9
 
 
-def bow_row(lib, voc, kind: str, desc_np, valid_np, reps: int = 10) -> dict:
-    """One case of `bow_assign` against its plain version on the card:
-    words, ok and gate exact, then per-call and device times (warm: the
+def bow_row(lib, twotrip, voc, kind: str, desc_np, valid_np, reps: int = 10,
+            timed: bool = True) -> dict:
+    """One case of `bow_assign` on the card: words, ok and gate exact
+    against both plain versions (the children-block walk and the JAX
+    layout), written inside guard rows; the first kernel and the variants
+    exact too. Then, if `timed`: per-call and device times (warm: the
     tables in L2; cold: one of many copies of the tables per call, so that
-    the bytes the calls read exceed the L2), the empty kernel of its grid and
-    its byte bound (the distinct bytes of `bow_assign_bytes`)."""
+    the bytes the calls read exceed the L2), each kernel in turns with the
+    others, the empty kernels of their grids and the byte bound (the
+    distinct bytes of `bow_assign_bytes`)."""
     from ..ops.bow import GATE_DEPTH
     from .cuda_timing import time_ms
     M = len(desc_np)
-    tables = [torch.from_numpy(t).cuda() for t in voc.device_tables()]
+    tables = voc.device_tables_on("cuda")
+    blocks = voc.child_blocks_on("cuda")
     d, v = torch.from_numpy(desc_np).cuda(), torch.from_numpy(valid_np).cuda()
     args = (d, v, voc.levels, GATE_DEPTH)
-    got = CK.bow_assign(*tables, *args)
+    bufs = [guarded(M, torch.int32), guarded(M, torch.bool), guarded(M, torch.int32)]
+    got = CK.bow_assign(*tables, *args, blocks=blocks, out=[b[1] for b in bufs])
+    check_guards(f"bow_assign M={M} ({kind})", bufs)
+    variant_fn = variant_launcher()
+
+    def outputs():
+        return (torch.empty(M, dtype=torch.int32, device="cuda"),
+                torch.empty(M, dtype=torch.bool, device="cuda"),
+                torch.empty(M, dtype=torch.int32, device="cuda"))
+
+    def old(t=tables, out=None):
+        out = out or outputs()
+        _check(twotrip.bow_assign_twotrip_launch(
+            *(x.data_ptr() for x in (*t, d, v, *out)), M, voc.k, voc.levels,
+            GATE_DEPTH, _stream()), "bow_assign_twotrip")
+        return out
+
+    def variant(i, b=blocks, out=None):
+        out = out or outputs()
+        _check(variant_fn(i, *(x.data_ptr() for x in (b.table, d, v, *out)), M,
+                          voc.k, voc.levels, GATE_DEPTH, b.root_block, b.root_word,
+                          CK.top_rows(b, voc.k), _stream()), f"bow_assign variant {i}")
+        return out
+
+    checks = {"kernel vs children-block walk": (got, CK.bow_assign_blocks_ref(
+                  blocks, *args)),
+              "kernel vs JAX layout": (got, CK.bow_assign_ref(*tables, *args)),
+              "first kernel": (old(), got)}
+    checks.update({name: (variant(i), got) for i, (name, _) in enumerate(BOW_VARIANTS)})
     torch.cuda.synchronize()
-    ref = CK.bow_assign_ref(*tables, *args)
-    err = 0
-    for name, x, y in zip(("words", "ok", "gate"), got, ref):
-        if x.dtype != y.dtype or not torch.equal(x, y):
-            raise AssertionError(f"bow_assign {name} disagrees at M={M} ({kind}) on "
-                                 f"{int((x != y).sum())} rows")
+    for what, (xs, ys) in checks.items():
+        for name, x, y in zip(("words", "ok", "gate"), xs, ys):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"bow_assign {name} disagrees at M={M} ({kind}), "
+                                     f"{what}, on {int((x != y).sum())} rows")
+    row = dict(err=0, shape=f"M={M}", kind=kind, n_valid=int(valid_np.sum()))
+    if not timed:
+        return row
     # a call reads only n_bytes distinct bytes of the tables: as many copies
     # of them as `cold_count` allows, so that the parts the calls read exceed
     # the L2 together
-    n_bytes, n_touched = bow_assign_bytes(voc, desc_np, valid_np)
-    n_sets = cold_count(n_bytes)
-    copies = [[t.clone() for t in tables] for _ in range(n_sets)]
-    row = dict(err=err, shape=f"M={M}", kind=kind, n_valid=int(valid_np.sum()),
-               ms=time_ms(lambda: CK.bow_assign(*tables, *args)),
-               plain_ms=time_ms(lambda: CK.bow_assign_ref(*tables, *args), reps=5),
-               dev=queued_ms(lambda: CK.bow_assign(*tables, *args), reps=reps),
-               cold=queued_cold_ms(lambda i: CK.bow_assign(*copies[i], *args), n_sets),
-               plain_dev=queued_ms(lambda: CK.bow_assign_ref(*tables, *args), reps=3),
-               floor=empty_kernel_ms(lib, -(-M // 4), 1, 128),
-               bytes=n_bytes, touched_bytes=n_touched,
-               bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S,
-               bound_by="bytes")
-    del copies
+    n_bytes, n_touched, n_blocks = bow_assign_bytes(voc, desc_np, valid_np)
+    n_sets, n_old_sets = cold_count(n_blocks), cold_count(n_bytes)
+    fixed = outputs()
+    copies = [blocks._replace(table=blocks.table.clone()) for _ in range(n_sets)]
+    old_copies = [[t.clone() for t in tables] for _ in range(n_old_sets)]
+    # name -> (warm call, cold call of copy i, copies, grid's warps a block)
+    kernels = {"kernel": (lambda: CK.bow_assign(*tables, *args, blocks=blocks,
+                                                out=fixed),
+                          lambda i: CK.bow_assign(*tables, *args, blocks=copies[i],
+                                                  out=fixed), n_sets, BOW_WARPS)}
+    for i, (name, warps) in enumerate(BOW_VARIANTS):
+        kernels[name] = (lambda i=i: variant(i, out=fixed),
+                         lambda j, i=i: variant(i, copies[j], fixed), n_sets, warps)
+    kernels["first kernel"] = (lambda: old(out=fixed),
+                               lambda j: old(old_copies[j], fixed), n_old_sets, 4)
+    order = list(kernels) + list(kernels)[::-1]
+    warm = {name: [] for name in kernels}
+    for name in order:  # in turns: each kernel before and after the others
+        warm[name].append(queued_ms(kernels[name][0], reps=reps))
+    times = {}
+    for name, (_, cold_fn, n, warps) in kernels.items():
+        runs = [x for x in warm[name] if x is not None]
+        times[name] = dict(dev=sum(runs) / len(runs) if runs else None,
+                           warm_runs=warm[name], cold=queued_cold_ms(cold_fn, n),
+                           cold_sets=n,
+                           floor=empty_kernel_ms(lib, -(-M // warps), 1, 32 * warps))
+    del copies, old_copies
+    k_t, o_t = times["kernel"], times["first kernel"]
+    row.update(ms=time_ms(kernels["kernel"][0]), old_ms=time_ms(kernels["first kernel"][0]),
+               plain_ms=time_ms(lambda: CK.bow_assign_blocks_ref(blocks, *args), reps=5),
+               jax_layout_plain_ms=time_ms(lambda: CK.bow_assign_ref(*tables, *args),
+                                           reps=5),
+               dev=k_t["dev"], cold=k_t["cold"], floor=k_t["floor"],
+               old_dev=o_t["dev"], old_cold=o_t["cold"], old_floor=o_t["floor"],
+               variants={name: times[name] for name, _ in BOW_VARIANTS},
+               plain_dev=queued_ms(lambda: CK.bow_assign_blocks_ref(blocks, *args),
+                                   reps=3),
+               bytes=n_bytes, touched_bytes=n_touched, block_bytes=n_blocks,
+               bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
     print(f"bow_assign M={M} ({kind}, {row['n_valid']} valid) on {len(voc.node_desc)} "
-          f"nodes (k={voc.k}, {voc.levels} levels): words, ok, gate exact "
+          f"nodes (k={voc.k}, {voc.levels} levels, {len(blocks.table)} blocks): words, "
+          f"ok, gate exact against both plain versions, guard rows intact "
           f"(max_abs_err 0); per call (CUDA events, back-to-back) kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; device time (CUDA "
-          f"events, queued) warm {fmt_ms(row['dev'])}, cold over {n_sets} copies of "
-          f"the tables {fmt_ms(row['cold'])}, plain {fmt_ms(row['plain_dev'])}, empty "
-          f"kernel of the grid {fmt_ms(row['floor'])}; bound {row['bound_ms']:.5f} ms "
-          f"by bytes ({n_bytes} distinct bytes: each node the valid rows' descents "
+          f"{row['ms']:.4f} ms, first kernel (no wrapper) {row['old_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms (JAX layout {row['jax_layout_plain_ms']:.4f}); "
+          f"device time (CUDA events, queued; warm runs in turns "
+          f"{' / '.join(order)}), warm (the runs) / cold (copies) / empty kernel of "
+          f"the grid: " + "; ".join(
+              f"{name} {fmt_ms(t['dev'])} ({', '.join(fmt_ms(x) for x in t['warm_runs'])})"
+              f" / {fmt_ms(t['cold'])} ({t['cold_sets']}) / {fmt_ms(t['floor'])}"
+              for name, t in times.items())
+          + f"; plain {fmt_ms(row['plain_dev'])}; bound {row['bound_ms']:.5f} ms by "
+          f"bytes ({n_bytes} distinct bytes: each node the valid rows' descents "
           f"stand on counted once; {n_touched} counting it once per row and level; "
-          f"the popcounts are {8 * voc.k * voc.levels * M} in all)", flush=True)
+          f"{n_blocks} of the block table, each expanded block once; the popcounts "
+          f"are {8 * voc.k * voc.levels * M} in all)", flush=True)
     return row
 
 
@@ -383,6 +507,15 @@ def main() -> int:
         return 2
     print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    from ..io.vocabulary import default_vocabulary
+    voc = default_vocabulary()
+    if "--bow" in sys.argv[1:]:
+        CK.build_kernels()
+        lib, twotrip = probe_lib(), twotrip_lib()
+        print(f"built (compile seconds by library: {_build.build_seconds})", flush=True)
+        for kind, desc, valid in bow_cases(voc):
+            bow_row(lib, twotrip, voc, kind, desc, valid, reps=20)
+        return 0
     ok, msg = xor_popc_compiles()
     print(f"mma.sync b1 .xor.popc for sm_90a: "
           f"{'accepted' if ok else 'refused'} by nvcc ({msg})", flush=True)
@@ -398,11 +531,10 @@ def main() -> int:
         probe_matrix(a, b)
         probe_best2(best2_cases(A, B))
     probe_best2(best2_cases(*LARGER))
-    from ..io.vocabulary import default_vocabulary
-    voc = default_vocabulary()
     probe_best2(best2_path_cases(voc=voc))
+    twotrip = twotrip_lib()
     for kind, desc, valid in bow_cases(voc):
-        bow_row(lib, voc, kind, desc, valid, reps=20)
+        bow_row(lib, twotrip, voc, kind, desc, valid, reps=20)
     return 0
 
 

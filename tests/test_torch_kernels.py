@@ -216,6 +216,25 @@ def test_reset_launch_counts_covers_both_kernels():
         assert wrapper.launches == 0 and wrapper.launches_by == {}
 
 
+def test_wrappers_write_into_out():
+    """out= (chip_smoke.py's guarded outputs) receives the results, and a
+    wrong shape, type or count is refused."""
+    (a, b, cand), = [c[1:] for c in best2_cases(10, 12) if c[0] == "sparse"]
+    ta, tb, tc = (torch.from_numpy(x) for x in (a, b, cand))
+    out = torch.full((10, 12), -1, dtype=torch.int32)
+    assert CK.hamming_matrix(ta, tb, out=out) is out
+    assert torch.equal(out, CK.hamming_matrix_ref(ta, tb))
+    three = [torch.full((10,), -1, dtype=torch.int32) for _ in range(3)]
+    got = CK.hamming_best2(ta, tb, tc, out=three)
+    assert all(g is o for g, o in zip(got, three))
+    assert all(torch.equal(g, r) for g, r in zip(got, CK.hamming_best2_ref(ta, tb, tc)))
+    for bad in (out[:, :11], out.to(torch.int64), out.T):
+        with pytest.raises(ValueError, match="out="):
+            CK.hamming_matrix(ta, tb, out=bad)
+    with pytest.raises(ValueError, match="out="):
+        CK.hamming_best2(ta, tb, tc, out=three[:2])
+
+
 @pytest.mark.cuda
 def test_cuda_best2_kernel_matches_plain():
     if not torch.cuda.is_available():
