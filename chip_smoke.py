@@ -55,7 +55,7 @@ Phases, each printed on its own line:
    solve from CUDA events and kernels per solve from a profiler trace;
 4. drives the port's synchronous path, System(cfg, device="cuda")
    .track_rgbd with the mapper inline, over the RGB-D benchmark room
-   (640x480, 1000 features, bf=250, ThDepth=25): the first 24 frames of the
+   (640x480, 1000 features, bf=250, ThDepth=25): the first 12 frames of the
    48-frame orbit and a 60-frame sweep; checks the tracked ratio, the
    metric ATE against the exact ground truth and the keyframe count;
    4b. drives the bench's path, System(cfg, device="cuda",
@@ -71,7 +71,7 @@ Phases, each printed on its own line:
 5. stereo, the bench's stereo row (48-frame orbit, the right image rendered
    0.5 m to the right with seed 10000 + i): pipelined with async mapping
    (at least 90% tracked, metric ATE <= 3 cm, 1 `hamming_matrix` and 2
-   `hamming_best2` a tracked frame), and its first 24 frames synchronously
+   `hamming_best2` a tracked frame), and its first 12 frames synchronously
    through System.track_stereo;
 6. monocular, the bench's headline row (180-frame orbit, ThDepth=35):
    pipelined with async mapping (initialized within the first 30% of the
@@ -92,7 +92,32 @@ Phases, each printed on its own line:
    same blackout, the viewpoint of the best-covered keyframe relocalizes
    within 4 frames with the viewing direction within cos > 0.99 of the
    truth. Prints every relocalization attempt (candidates, BoW matches, PnP
-   inliers, inliers after LM, bindings after rescue, ms).
+   inliers, inliers after LM, bindings after rescue, ms);
+8. loop closing and the background global BA on a lap of the corridor
+   circuit (synth.make_corridor(seed=3), 640x480, the 240-frame
+   corridor_trajectory of radius 8, images with noise 2.5), the cells of
+   tests/test_loop_closure_e2e.py, after phase 7b: the RGB-D lap in a
+   process of its own (`--loop-lap rgbd`) beside the monocular lap, which
+   closes its loop after the RGB-D lap has ended (the line says what ran
+   beside its first correction). Both laps go one frame at a time through
+   the sensor's entry point
+   (run_sequence(pipelined=False)): the block driver loses track on this
+   lap in both packages (tests/torch_corridor_lap.py; PERF.md). RGB-D
+   with the mapper on its worker (the loop closer on the worker's stream,
+   the global BA on its own thread and CUDA stream; shutdown() applies it):
+   at least 235 of 240 frames tracked, a loop closed, a global BA applied,
+   metric ATE under 3 cm; monocular with the mapper inline: at least 230
+   tracked, a loop closed, a global BA applied, points fused, at least one
+   post-fuse loop connection in the essential graph, a pre-loop
+   Sim(3)-aligned ATE over 2.5 cm (the drift that makes the lap a
+   loop-closure workload) and a final one under 6 cm and under the
+   pre-loop one. Prints each closure (keyframe pair, BoW matches, RANSAC
+   inliers, inliers after the Sim(3) refinement, support matches, fused
+   points, essential-graph edges and loop connections, ms per part of
+   LoopCloser.process), ms per global-BA chunk and solve, the ATE before
+   and after the first correction and at the end, and the kernels'
+   launches by caller; `hamming_best2` must have
+   been launched by the loop closer (caller "loop") on both laps.
 
 The launch counts are set to 0 just before each path and read just after;
 both Hamming kernels must have been launched on the synchronous and on the
@@ -118,7 +143,7 @@ N_WARM = 8  # frames excluded from the per-frame time statistics
 HAMMING_SHAPES = ((4096, 1024), (1024, 1024), (1000, 777))
 BA_CELLS = (("local", 16, 2048, 8192), ("global", 128, 8192, 65536))
 ORBIT_FRAMES = 48
-SYNC_ORBIT_FRAMES = 24       # synchronous RGB-D and stereo: the orbit's start
+SYNC_ORBIT_FRAMES = 12       # synchronous RGB-D and stereo: the orbit's start
 SYNC_SWEEP_FRAMES = 60
 SWEEP_FRAMES = 120
 MONO_FRAMES = 180
@@ -141,6 +166,15 @@ LOCALIZATION_FRAMES = 24
 RGBD_REVISIT = 10      # the sweep frame whose viewpoint is revisited
 RELOC_GATE_CM, RELOC_GATE_DEG = 5.0, 1.0  # RGB-D: the relocalized pose
 RESCUE_WIDTH, RESCUE_POINTS = 1024, 80   # phase 7b: rows and features a frame
+# phase 8: the corridor lap of tests/test_loop_closure_e2e.py and its gates
+LOOP_FRAMES, LOOP_RADIUS, LOOP_NOISE = 240, 8.0, 2.5
+LOOP_TIMEOUT_S = 900  # both laps, from the start of the RGB-D lap's process
+# the mapper of each lap: RGB-D on its worker (the loop closer on the worker's
+# stream, the global BA on a third thread), monocular inline, where the test's
+# drift premise and improvement gate were set
+LOOP_ASYNC = {"rgbd": True, "mono": False}
+LOOP_GATES = {"rgbd": dict(tracked=235, ate=0.03),
+              "mono": dict(tracked=230, ate=0.06, pre_loop=0.025)}
 T = None      # orbslam2_tpu_torch.utils.cuda_timing, imported in main()
 
 
@@ -809,6 +843,155 @@ def check_reloc_rescue(P, CK) -> None:
         raise AssertionError(f"{tag}: kernel launches {launches}")
 
 
+def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
+               async_mapping: bool, beside=None) -> dict:
+    """Phase 8, one lap of the corridor through the sensor's entry point
+    (track_rgbd, track_monocular), one frame at a time, with the mapper on
+    its worker (`async_mapping`) or inline. Records the ATE just before the
+    first loop correction and just after it (before the global BA it
+    launches lands), and what else ran on the card then (`beside()`, where
+    given), applies the gates of tests/test_loop_closure_e2e.py and returns
+    the lap's launches."""
+    from orbslam2_tpu_torch.utils.profile_frame import bench_config
+    tag = f"phase 8 {sensor}"
+    mono = sensor == "mono"
+    cfg = bench_config(scene, P.Sensor.MONOCULAR if mono else P.Sensor.RGBD)
+    slam = P.System(cfg, device="cuda", async_mapping=async_mapping)
+    lc = slam.loop_closer
+    ates: dict = {}
+
+    def ate_now():
+        ts, est = slam.tracker.trajectory()
+        if len(est) < 3:
+            return float("nan")
+        fids = np.round(np.asarray(ts) * 30).astype(int)
+        return evaluation.ate_rmse(evaluation.camera_centers(est),
+                                   evaluation.camera_centers(gt[fids]), with_scale=mono)
+
+    orig_correct = lc._correct_loop
+
+    def correct(kf, kc, s12, R12, t12):
+        first = "before" not in ates
+        if first:
+            ates["before"], ates["frame"] = ate_now(), len(slam.tracker.frame_log)
+            ates["beside"] = beside() if beside else None
+        orig_correct(kf, kc, s12, R12, t12)
+        if first:
+            ates["after"] = ate_now()
+
+    lc._correct_loop = correct
+    CK.reset_launch_counts()
+    t0 = time.perf_counter()
+    tracked = slam.run_sequence(iter(items), pipelined=False)
+    slam.shutdown()  # drains the mapper, then waits for the global BA and applies it
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(CK)
+    ates["end"] = ate_now()
+    gba = slam.global_ba
+    kind = "Sim(3)-aligned" if mono else "metric"
+    for c in lc.closures:
+        ms = ", ".join(f"{k} {v:.1f}" for k, v in c["ms"].items())
+        print(f"{tag}: loop closed between keyframe {c['kf']} and keyframe {c['kc']}: "
+              f"{c['bow_matches']} BoW matches, {c['ransac_inliers']} Sim(3) RANSAC "
+              f"inliers, {c['guided_matches']} after SearchBySim3, {c['sim3_inliers']} "
+              f"inliers after optimize_sim3 (scale {c['scale']:.4f}), {c['support']} "
+              f"support matches, {c['fused']} points fused, essential graph "
+              f"{c.get('n_edges')} edges with {c.get('n_loop_conn')} loop connections; "
+              f"ms per part of LoopCloser.process: {ms}", flush=True)
+    mapper = "on its worker" if async_mapping else "inline"
+    print(f"{tag}: corridor-{len(items)}, mapper {mapper}: tracked {tracked}/{len(items)}, loops "
+          f"{lc.n_loops_closed} {lc.loop_edges}, keyframes {slam.map.n_keyframes}, points "
+          f"{slam.map.n_points}; {kind} ATE before the first correction "
+          f"{100 * ates.get('before', float('nan')):.3f} cm (frame {ates.get('frame')}), "
+          f"after it {100 * ates.get('after', float('nan')):.3f} cm, at the end (global BA "
+          f"applied) {100 * ates['end']:.3f} cm"
+          + (f"; the first correction ran beside {ates.get('beside')}" if beside else "")
+          + f"; global BA: {gba.full_ba_idx} launched, "
+          f"{gba.n_aborted} aborted, {gba.n_applied} applied, ms per chunk of the last "
+          f"solve {[round(x, 1) for x in gba.chunk_ms]}, ms per whole solve "
+          f"{[round(x, 1) for x in gba.solve_ms]}; {seconds:.1f} s in all; kernel "
+          f"launches {launches}; card {T.card_line()}", flush=True)
+    g = LOOP_GATES[sensor]
+    fails = []
+    if tracked < g["tracked"]:
+        fails.append(f"tracked {tracked} (gate {g['tracked']})")
+    if lc.n_loops_closed < 1 or slam.map_stats()["loops"] < 1:
+        fails.append("no loop closed")
+    if gba.n_applied < 1:
+        fails.append("no global BA applied")
+    if not ates["end"] < g["ate"]:
+        fails.append(f"ATE {100 * ates['end']:.3f} cm (gate {100 * g['ate']:.0f} cm)")
+    if launches["hamming_best2"].get("loop", 0) <= 0:
+        fails.append("the loop closer never launched hamming_best2")
+    if mono:
+        pgo = lc.last_pgo_edges
+        if lc.n_loop_fused <= 0 or pgo.get("n_loop_conn", 0) < 1:
+            fails.append(f"fused {lc.n_loop_fused}, essential graph {pgo}")
+        before = ates.get("before", float("nan"))
+        if not (before > g["pre_loop"] and ates["end"] < before):
+            fails.append(f"pre-loop ATE {100 * before:.3f} cm (gates: over "
+                         f"{100 * g['pre_loop']:.1f} cm, above the final ATE)")
+    if fails:
+        raise AssertionError(f"{tag}: " + "; ".join(fails))
+    return dict(launches=launches)
+
+
+def loop_lap(sensor: str) -> int:
+    """Phase 8's lap of one sensor in a process of its own (`--loop-lap
+    SENSOR`), beside the other lap in main(). The kernels and the host
+    library are loaded from build/, where main() built them. The last line
+    is the lap's kernel launches as JSON."""
+    import orbslam2_tpu_torch as P
+    from orbslam2_tpu_torch import native
+    from orbslam2_tpu_torch.io import synth
+    from orbslam2_tpu_torch.ops import cuda_kernels as CK
+    from orbslam2_tpu_torch.utils import cuda_timing, evaluation
+    global T
+    T = cuda_timing
+    CK.build_kernels()
+    if not native.available():
+        raise RuntimeError("host map library (native/mapops.cpp) did not load")
+    corridor = synth.make_corridor(seed=3)
+    lap = synth.corridor_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS)
+    res = check_loop(P, CK, synth, evaluation, corridor, lap,
+                     render_corridor(synth, corridor, lap), sensor, LOOP_ASYNC[sensor])
+    print(json.dumps({"lap": sensor, "launches": res["launches"]}), flush=True)
+    return 0
+
+
+def finish_lap(proc, out, deadline: float) -> dict:
+    """Wait for a lap's process until `deadline` (perf_counter seconds),
+    print its lines, and fail if it failed or is late. Returns its
+    launches."""
+    import subprocess
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out.seek(0)
+    lines = out.read().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        print(lines[-1] if lines else "", flush=True)
+        raise AssertionError(f"phase 8: the lap's process exited {proc.returncode}")
+    return json.loads(lines[-1])
+
+
+def render_corridor(synth, scene, gt) -> list:
+    """The lap's sequence items with depth, rendered once with 8 threads.
+    The images stay float, as tests/test_loop_closure_e2e.py passes them
+    (the System rounds them to gray u8)."""
+    def item(i):
+        return i / 30.0, {"image": synth.render_room(scene, gt[i], noise=LOOP_NOISE, seed=i),
+                          "depth": synth.depth_room(scene, gt[i])}
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(item, range(len(gt))))
+
+
 def check_block_sync_free(P, items, cfg, sensor: str) -> None:
     """One block dispatch under sync debug mode "error": uploads, the
     device call of 6 frames and the start of the readback must not wait for
@@ -881,6 +1064,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--kernel-checks"]:
         return kernel_checks()
+    if sys.argv[1:] == ["--loop-lap", "rgbd"]:
+        return loop_lap("rgbd")
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
@@ -895,6 +1080,7 @@ def main() -> int:
 
     global T
     T = cuda_timing
+    t_start = time.perf_counter()
     card = T.card_line()
     print(f"phase 1: card: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -1002,6 +1188,29 @@ def main() -> int:
                                      f"launched {kernel}")
     # phase 7b: its launches are counted apart from the main paths'
     check_reloc_rescue(P, CK)
+    # phase 8: loop closing and the background global BA on the corridor
+    # lap, once every earlier phase is done: the RGB-D lap (about 2.5
+    # minutes) in a process of its own beside the monocular lap (about 7),
+    # whose closure comes after the RGB-D lap has ended
+    import subprocess
+    import tempfile
+    deadline = time.perf_counter() + LOOP_TIMEOUT_S
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, __file__, "--loop-lap", "rgbd"],
+                            stdout=out, stderr=subprocess.STDOUT, text=True)
+    try:
+        corridor = synth.make_corridor(seed=3)
+        lap = synth.corridor_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS)
+        loops = [check_loop(
+            P, CK, synth, evaluation, corridor, lap, render_corridor(synth, corridor, lap),
+            "mono", LOOP_ASYNC["mono"],
+            beside=lambda: "the RGB-D lap" if proc.poll() is None else "no other lap")]
+        loops.append(finish_lap(proc, out, deadline))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        out.close()
 
     def total(runs, kernel: str) -> dict:
         by = {}
@@ -1012,12 +1221,13 @@ def main() -> int:
 
     # the main path is the bench's entry point, pipelined with async
     # mapping, once per sensor row (and the RGB-D sweep, which maps)
-    main_path = piped + [stereo[0], mono[0]] + reloc
+    main_path = piped + [stereo[0], mono[0]] + reloc + loops
     others = sync + [stereo[1], mono[1]]
     launches_by = {kernel: total(main_path, kernel) for kernel in KERNELS}
-    print(f"phase 7: kernel launches on the pipelined paths of all sensors and "
-          f"the relocalization paths after them: {launches_by}; synchronous paths: "
-          f"{({k: total(others, k) for k in KERNELS})}", flush=True)
+    print(f"phase 8: kernel launches on the pipelined paths of all sensors, the "
+          f"relocalization paths after them and the corridor laps: {launches_by}; "
+          f"synchronous paths: {({k: total(others, k) for k in KERNELS})}; "
+          f"{time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # every number in these lines is measured in this run, at the shape the
     # main path gives the kernel (named as a string): motion_model_core's

@@ -17,6 +17,9 @@ function on device tensors with one readback by the caller:
 - `fuse_targets`: the new keyframe's points projected into each fuse target
   (ORBmatcher::Fuse direction 1), and the union of the targets' points
   projected into the new keyframe (direction 2).
+- `fuse_scw`: loop closing's group-wide fusion (LoopClosing::SearchAndFuse,
+  src/LoopClosing.cpp:744-789): the loop side's points projected into each
+  keyframe of the corrected covisible group.
 
 The host keeps the bookkeeping: slot allocation, observation merges
 (local_mapping.py).
@@ -111,3 +114,31 @@ def fuse_targets(T_t, kp_xy_t, kp_oct_t, kp_desc_t, kp_valid_t, kp_ur_t,
     idx_b = fuse(T_kf, b_xyz, b_valid, b_desc, b_normal, b_mind, b_maxd,
                  kp_xy_k, kp_oct_k, kp_desc_k, kp_valid_k, kp_ur_k)
     return idx_a, idx_b
+
+
+def fuse_scw(T_g, kp_xy_g, kp_oct_g, kp_desc_g, kp_valid_g, kp_ur_g,
+             p_xyz, p_valid, p_desc, p_normal, p_mind, p_maxd,
+             sf, fx: float, fy: float, cx: float, cy: float, bf: float,
+             width: int, height: int, n_levels: int, log_scale: float):
+    """Group-wide loop fusion: ORBmatcher::Fuse(Scw) swept over the
+    corrected covisible group.
+
+    T_g [G,3,4]: the group's corrected, SE3-demoted poses. Projecting the
+    demoted pose is the same as projecting the Scw similarity: the scale
+    cancels in the perspective divide, and the distance band uses |p_c|/s,
+    which the demoted pose gives directly. kp_* [G,N,...]: the group
+    keyframes' feature arrays; p_* [P]: the loop-region point set (padded,
+    p_valid mask).
+
+    Returns idx [G,P]: the matched keypoint per (group keyframe, loop
+    point), -1 for none. No dedup: several loop points that claim one
+    keypoint must all surface, so that the host can merge them (the
+    reference's replace). Radius th = 1 (2.5 to 4 px times the scale)."""
+    no_already = torch.zeros_like(p_valid)
+    return torch.stack([
+        FM.local_points_core(
+            T_g[j], p_xyz, p_valid, p_desc, p_normal, p_mind, p_maxd, no_already,
+            kp_xy_g[j], kp_oct_g[j], kp_desc_g[j], kp_valid_g[j], kp_ur_g[j],
+            sf, fx, fy, cx, cy, bf, width, height, n_levels, log_scale, 1.0,
+            dedup=False)[0].idx
+        for j in range(T_g.shape[0])])

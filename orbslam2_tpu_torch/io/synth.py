@@ -1,9 +1,10 @@
 """Synthetic textured-room sequences with exact ground truth.
 
-The room scene of orbslam2_tpu/io/synth.py, copied (numpy only) so that the
-port and chip_smoke.py can render the benchmark sequences on a machine without
-JAX: a textured 3-plane room rendered by exact ray-plane intersection, its
-depth maps, and the orbit and sweep camera trajectories.
+The room and corridor scenes of orbslam2_tpu/io/synth.py, copied (numpy
+only) so that the port and chip_smoke.py can render the benchmark and loop
+sequences on a machine without JAX: a textured room and a square corridor
+circuit rendered by exact ray-plane intersection, their depth maps, and the
+orbit, sweep, corridor-lap and in-room loop camera trajectories.
 """
 from __future__ import annotations
 
@@ -153,6 +154,79 @@ def make_room(seed=0, width=640, height=480, fx=500.0, fy=500.0,
     return RoomScene(planes, K, width, height)
 
 
+def make_corridor(seed=0, width=640, height=480, fx=500.0, fy=500.0,
+                  outer=10.0, inner=5.0, half_h=2.0) -> RoomScene:
+    """Square corridor circuit: an outer box (|x|,|z| <= outer) minus an
+    inner box (|x|,|z| <= inner), textured walls + floor + ceiling. Unlike
+    a single room, a camera travelling the circuit loses sight of early
+    landmarks for most of the lap, so odometry drift ACCUMULATES — the
+    loop-closure workload the reference is evaluated on (KITTI circuits).
+    Requires finite plane extents (non-convex environment)."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[fx, 0, width / 2], [0, fy, height / 2], [0, 0, 1]],
+                 np.float32)
+    ex = lambda half: (-half, half, -half_h, half_h)  # noqa: E731
+    planes = []
+    Y = np.array([0.0, 1.0, 0.0])
+    # outer walls (normals point inward), finite panels
+    for sgn in (-1.0, 1.0):
+        # x = ±outer
+        planes.append((np.array([sgn * outer, 0.0, 0.0]),
+                       np.array([-sgn, 0.0, 0.0]),
+                       np.array([0.0, 0.0, 1.0]), Y,
+                       _corner_texture(rng), 45.0, ex(outer)))
+        # z = ±outer
+        planes.append((np.array([0.0, 0.0, sgn * outer]),
+                       np.array([0.0, 0.0, -sgn]),
+                       np.array([1.0, 0.0, 0.0]), Y,
+                       _corner_texture(rng), 45.0, ex(outer)))
+        # inner walls (normals point outward into the corridor)
+        planes.append((np.array([sgn * inner, 0.0, 0.0]),
+                       np.array([sgn, 0.0, 0.0]),
+                       np.array([0.0, 0.0, 1.0]), Y,
+                       _corner_texture(rng), 60.0, ex(inner)))
+        planes.append((np.array([0.0, 0.0, sgn * inner]),
+                       np.array([0.0, 0.0, sgn]),
+                       np.array([1.0, 0.0, 0.0]), Y,
+                       _corner_texture(rng), 60.0, ex(inner)))
+    # floor (y = +half_h) and ceiling (y = -half_h)
+    planes.append((np.array([0.0, half_h, 0.0]), np.array([0.0, -1.0, 0.0]),
+                   np.array([1.0, 0.0, 0.0]), np.array([0.0, 0.0, 1.0]),
+                   _corner_texture(rng), 45.0,
+                   (-outer, outer, -outer, outer)))
+    planes.append((np.array([0.0, -half_h, 0.0]), np.array([0.0, 1.0, 0.0]),
+                   np.array([1.0, 0.0, 0.0]), np.array([0.0, 0.0, 1.0]),
+                   _corner_texture(rng), 45.0,
+                   (-outer, outer, -outer, outer)))
+    return RoomScene(planes, K, width, height)
+
+
+def corridor_trajectory(n_frames: int, radius=8.0, laps=1.0, helix=0.0):
+    """Circular circuit of `radius` inside the corridor, camera facing its
+    direction of travel (tangent): the classic revisit-after-a-lap
+    loop-closure trajectory. Returns [F, 3, 4] Tcw.
+
+    helix > 0 descends the camera by `helix` meters per lap (keep
+    laps*helix well under make_corridor's half_h): each lap then maps
+    fresh viewpoints beside the previous lap's ring, so drift accumulates
+    again every lap and the loop machinery must close a loop per revisit."""
+    poses = []
+    for i in range(n_frames):
+        th = 2.0 * np.pi * laps * i / max(n_frames - 1, 1)
+        c, s = np.cos(th), np.sin(th)
+        C = np.array([radius * s,
+                      0.015 * np.sin(th * 5) + helix * th / (2.0 * np.pi),
+                      radius * c])
+        z_cam = np.array([c, 0.0, -s])          # tangent (direction of travel)
+        y_cam = np.array([0.0, 1.0, 0.0])
+        x_cam = np.cross(y_cam, z_cam)
+        Rwc = np.stack([x_cam, y_cam, z_cam], axis=1)
+        Rcw = Rwc.T
+        tcw = -Rcw @ C
+        poses.append(np.hstack([Rcw, tcw[:, None]]).astype(np.float32))
+    return np.stack(poses)
+
+
 def render_room(scene: RoomScene, Tcw: np.ndarray, noise=1.0, seed=0):
     best_i, best_t, C, dirs = scene.ray_depths(Tcw)
     img = np.full((scene.height, scene.width), 90.0, np.float32)
@@ -213,4 +287,20 @@ def sweep_trajectory(n_frames: int, step=0.07):
         C = np.array([x, 0.03 * np.sin(i * 0.5), 0.0], np.float32)
         R = np.eye(3, dtype=np.float32)
         poses.append(np.hstack([R, (-R @ C)[:, None]]).astype(np.float32))
+    return np.stack(poses)
+
+
+def loop_trajectory(n_frames: int, radius=1.5, seed=0):
+    """Closed circular path inside the room, camera facing outward: the end
+    revisits the start (the loop-closure workload). Returns [F, 3, 4] Tcw."""
+    poses = []
+    for i in range(n_frames):
+        a = 2 * np.pi * i / n_frames
+        # camera center on the circle, looking radially outward
+        C = np.array([radius * np.sin(a), 0.0, -radius * np.cos(a)], np.float32)
+        yaw = a
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        Rwc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
+        Rcw = Rwc.T
+        poses.append(np.hstack([Rcw, (-Rcw @ C)[:, None]]).astype(np.float32))
     return np.stack(poses)

@@ -22,8 +22,9 @@ with the mapping but never see a half-applied update. With a keyframe
 database and a BoW encoder (relocalization.Relocalizer.frame_bow) every
 keyframe's BoW vector and gate nodes are registered in its prep
 (ProcessNewKeyFrame's ComputeBoW + KeyFrameDatabase::add), and a culled
-keyframe leaves the database. Loop closing (ROADMAP.md queue 1, item 14) is
-not ported: its hook must be None.
+keyframe leaves the database. With a loop closer (loop_closing.LoopCloser,
+which System sets) every keyframe ends with the loop stage, under the map
+lock, on the thread that maps it.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from .ops import refine as RF
 from .utils.device import upload
 from .utils.metrics import log_event
 
-STAGES = ("prep", "newpts", "fuse", "ba", "cull")
+STAGES = ("prep", "newpts", "fuse", "ba", "cull", "loop")
 
 
 def _bucket(n: int, buckets) -> int:
@@ -173,10 +174,8 @@ class LocalMapper:
     def __init__(self, cfg: SlamConfig, mp: MapState, loop_closer=None,
                  kf_db=None, bow_encode=None,
                  device: torch.device | str = "cpu"):
-        if loop_closer is not None:
-            raise NotImplementedError(
-                "loop closing is not ported yet (ROADMAP.md queue 1, item 14)")
         self.cfg = cfg
+        self.loop_closer = loop_closer
         self.map = mp
         # place recognition: the keyframe database and the BoW encoder (the
         # Relocalizer: its frame_bow for a keyframe of an initial map, its
@@ -356,6 +355,10 @@ class LocalMapper:
             t.append(time.perf_counter())
             with mp.lock:
                 self.cull_keyframes(kf)
+                t.append(time.perf_counter())
+                if self.loop_closer is not None:
+                    with CK.launches_counted_as("loop"):
+                        self.loop_closer.process(kf)
             t.append(time.perf_counter())
         # "bow" is the host time inside "prep" that place recognition adds:
         # dispatching the word assignment, then building and registering the

@@ -26,8 +26,8 @@ keyframes is one vectorized gather, serving the same candidate logic:
 - DetectRelocalizationCandidates (:244): same without the covisibility
   exclusion / min score
 
-`detect_loop_candidates` and `scores_for_kf` serve loop closing, which the
-port does not have yet (ROADMAP.md queue 1, item 14).
+`detect_loop_candidates` and `scores_for_kf` serve loop closing
+(loop_closing.LoopCloser._detect).
 """
 from __future__ import annotations
 

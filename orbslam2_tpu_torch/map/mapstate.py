@@ -504,6 +504,31 @@ class MapState:
         w[~self.kf_valid] = 0
         return w
 
+    def covis_matrix(self) -> np.ndarray:
+        """Full [K, K] shared-point counts in one pass (native kernel,
+        incidence-matmul fallback): the pose-graph edge construction sweeps
+        every keyframe pair, where per-keyframe covisibility_weights would
+        cost O(K^2 N)."""
+        from .. import native
+        W = native.covis_matrix(self.kf_pt, self.kf_valid, self.pt_xyz.shape[0])
+        if W is None:
+            # incidence matmul fallback: [K, Pv] f32 against itself
+            live = np.flatnonzero(self.pt_valid)
+            slot = np.full(self.pt_xyz.shape[0] + 1, -1, np.int64)
+            slot[live] = np.arange(len(live))
+            idx = slot[np.where(self.kf_pt >= 0, self.kf_pt, self.pt_xyz.shape[0])]
+            K = self.kf_pt.shape[0]
+            B = np.zeros((K, len(live) + 1), np.float32)
+            rows = np.repeat(np.arange(K), self.kf_pt.shape[1])
+            B[rows, np.where(idx >= 0, idx, len(live)).ravel()] = 1.0
+            B[:, -1] = 0.0
+            B[~self.kf_valid] = 0.0
+            W = (B @ B.T).astype(np.int32)
+        np.fill_diagonal(W, 0)
+        W[~self.kf_valid] = 0
+        W[:, ~self.kf_valid] = 0
+        return W
+
     def covisible_kfs(self, k: int, n: int | None = None, min_weight: int = 15
                       ) -> np.ndarray:
         """Best covisible keyframes ordered by weight (threshold 15, best

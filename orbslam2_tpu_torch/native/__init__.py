@@ -1,6 +1,7 @@
 """ctypes loader for the native host map operations (mapops.cpp).
 
-mapops.cpp is host C++ (covisibility voting, medoid descriptors), copied from
+mapops.cpp is host C++ (covisibility voting: one keyframe's weights or the
+full matrix; medoid descriptors), copied from
 orbslam2_tpu/native. It is compiled with g++ on first use into `build/` at
 the repository root (_build.py). When g++ is missing or the build fails,
 every entry point returns None and MapState falls back to numpy: this is
@@ -36,6 +37,10 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64, i64,
         ctypes.c_void_p, ctypes.c_void_p]
     lib.covis_weights.restype = None
+    lib.covis_matrix.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.covis_matrix.restype = None
     lib.medoid_descriptors.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, i64, ctypes.c_void_p]
     lib.medoid_descriptors.restype = None
@@ -62,6 +67,23 @@ def covis_weights(kf_pt: np.ndarray, kf_valid: np.ndarray, k: int,
     lib.covis_weights(kf_pt.ctypes.data, valid.ctypes.data, K, N, n_points,
                       int(k), scratch.ctypes.data, out.ctypes.data)
     return out
+
+
+def covis_matrix(kf_pt: np.ndarray, kf_valid: np.ndarray, n_points: int
+                 ) -> np.ndarray | None:
+    """Shared-point counts between every pair of valid keyframes [K, K]
+    (symmetric); None when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return None
+    K, N = kf_pt.shape
+    kf_pt = np.ascontiguousarray(kf_pt, np.int32)
+    valid = np.ascontiguousarray(kf_valid, np.uint8)
+    scratch = np.full(n_points, -1, np.int32)
+    out = np.zeros((K, K), np.int32)
+    lib.covis_matrix(kf_pt.ctypes.data, valid.ctypes.data, K, N, n_points,
+                     scratch.ctypes.data, out.ctypes.data)
+    return out + out.T
 
 
 def medoid_descriptors(descs: np.ndarray, offsets: np.ndarray

@@ -3,7 +3,8 @@
 // The reference implements its entire runtime in C++ (SURVEY.md §2); in this
 // engine the device compute path is PyTorch and CUDA, and the host-side
 // bookkeeping hot paths live here: covisibility voting over the
-// keyframe->point table and medoid-descriptor selection over observation
+// keyframe->point table (one keyframe's row, or the whole [K, K] matrix for
+// the essential graph) and medoid-descriptor selection over observation
 // groups (the per-point pairwise-Hamming loops that are slow as interpreted
 // code). Copied from orbslam2_tpu/native/mapops.cpp; exposed via a plain C
 // ABI and loaded with ctypes (native/__init__.py).
@@ -12,6 +13,7 @@
 //   g++ -O3 -march=native -shared -fPIC mapops.cpp -o libmapops.so
 
 #include <cstdint>
+#include <cstring>
 
 extern "C" {
 
@@ -42,6 +44,52 @@ void covis_weights(const int32_t* kf_pt, const uint8_t* kf_valid,
         int32_t p = row[i];
         if (p >= 0 && p < P) scratch_seen[p] = 0;
     }
+}
+
+// Full covisibility edge accumulation: for every valid keyframe pair count
+// shared points (used by pose-graph edge construction).
+// out: [K, K] int32 upper-triangular counts.
+void covis_matrix(const int32_t* kf_pt, const uint8_t* kf_valid,
+                  int64_t K, int64_t N, int64_t P,
+                  int32_t* pt_owner_scratch,  // [P] int32, init -1
+                  int32_t* out) {
+    std::memset(out, 0, sizeof(int32_t) * K * K);
+    // invert: for each point remember last keyframe seen; simple O(K*N + E)
+    // accumulation via per-point observer chains is overkill here — do
+    // per-point bitsets in chunks instead: for each keyframe, walk its
+    // points and scatter into a per-point "first owner" then count.
+    for (int64_t p = 0; p < P; ++p) pt_owner_scratch[p] = -1;
+    // For each keyframe j, for each point p in j: for all earlier owners we
+    // need counts; store linked ownership via repeated passes is O(K^2 N) in
+    // the worst case — instead use per-point observer lists built once.
+    // counts[j1, j2] built by bucketing observers.
+    // observer list head/next arrays:
+    // (heads in pt_owner_scratch, next chained through a local buffer)
+    int32_t* next = new int32_t[K * N];
+    for (int64_t j = 0; j < K; ++j) {
+        if (!kf_valid[j]) continue;
+        const int32_t* r = kf_pt + j * N;
+        for (int64_t i = 0; i < N; ++i) {
+            int32_t p = r[i];
+            if (p < 0 || p >= P) continue;
+            int64_t slot = j * N + i;
+            next[slot] = pt_owner_scratch[p];
+            pt_owner_scratch[p] = (int32_t)slot;
+        }
+    }
+    for (int64_t p = 0; p < P; ++p) {
+        for (int32_t a = pt_owner_scratch[p]; a >= 0; a = next[a]) {
+            int64_t ja = a / N;
+            for (int32_t b = next[a]; b >= 0; b = next[b]) {
+                int64_t jb = b / N;
+                if (ja == jb) continue;
+                int64_t lo = ja < jb ? ja : jb, hi = ja < jb ? jb : ja;
+                out[lo * K + hi] += 1;
+            }
+        }
+        pt_owner_scratch[p] = -1;
+    }
+    delete[] next;
 }
 
 static inline int popcount256(const uint32_t* a, const uint32_t* b) {

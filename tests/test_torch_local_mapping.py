@@ -75,17 +75,31 @@ def test_same_keyframes_culled(mapped):
 def test_stage_times_recorded(mapped):
     (row,) = mapped["tm"].stage_ms
     assert row["kf"] == mapped["k"]
-    assert all(row[s] >= 0 for s in ("prep", "newpts", "fuse", "ba", "cull"))
+    assert all(row[s] >= 0 for s in ("prep", "newpts", "fuse", "ba", "cull", "loop"))
 
 
-def test_hooks_not_ported_raise():
-    """Loop closing is still refused; the keyframe database and the BoW
-    encoder are taken, and a keyframe registered through them is in the
-    database with its gate nodes."""
+def test_hooks_not_ported_raise(tmp_path):
+    """Every hook is taken now. A loop closer (ported since the loop-closing
+    slice) runs last in `process`, after keyframe culling, on the keyframe
+    just mapped, under the map lock, with its kernel launches counted as
+    "loop"; the keyframe database and the BoW encoder are taken, and a
+    keyframe registered through them is in the database with its gate
+    nodes."""
+    from orbslam2_tpu_torch.ops import cuda_kernels as CK
     _, cfg_t = configs()
+    _, tmap = _copies(tmp_path)
+    k = int(np.flatnonzero(tmap.kf_valid)[-1])
+    seen = []
+
+    class Closer:
+        def process(self, kf):
+            seen.append((kf, tmap.lock._is_owned(), CK._caller.name))
+
+    lm = TMapper(cfg_t, tmap, loop_closer=Closer(), device="cpu")
+    lm.process(k)
+    assert seen == [(k, True, "loop")]
+    assert lm.stage_ms[0]["loop"] >= 0
     mp = TMap(cfg_t, 512)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        TMapper(cfg_t, mp, loop_closer=object())
     calls = []
 
     class DB:

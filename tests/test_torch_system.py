@@ -1,9 +1,10 @@
 """The port's package boundary and host pieces: it imports without JAX, keeps
 TF32 off, raises NotImplementedError (naming the ROADMAP item) for what is
-not ported yet (loop closing, map files), runs what is (the three entry
+not ported yet (map files), runs what is (the three entry
 points, each refused on a System of another sensor; an empty sequence; a
 tracker with a mapper and with a relocalizer; a mapper with a keyframe
-database; localization mode; the vocabulary argument),
+database and with a loop closer; localization mode; the vocabulary
+argument),
 and its host code (settings, interop, native map ops, the device mirror of
 the point table, host-to-device uploads) agrees with the JAX package."""
 import dataclasses
@@ -82,6 +83,17 @@ def _tracker_takes_relocalizer(s):
     assert s.local_mapper.kf_db is s.kf_db is s.relocalizer.db
 
 
+def _system_closes_loops(s):
+    """The System builds the loop closer and the global BA and hands the
+    closer to its mapper; a mapper takes a closer of its own."""
+    lc = object()
+    assert _mapper_with(loop_closer=lc).loop_closer is lc
+    assert s.local_mapper.loop_closer is s.loop_closer
+    assert s.loop_closer.global_ba is s.global_ba and not s.global_ba.running
+    assert s.loop_closer.device == s.global_ba.device == s.device
+    assert s.map_stats()["loops"] == 0 == s.loop_closer.n_loops_closed
+
+
 # (call, still refused): every call that an earlier step of the port refused.
 # Those that are ported since (refused=False) are held to their behaviour
 # instead; the test keeps its name so that its cases keep theirs
@@ -89,7 +101,7 @@ def _tracker_takes_relocalizer(s):
     (_localization_mode, False),
     (lambda s: s.save_map("never_written.npz"), True),
     (lambda s: s.load_map("never_read.npz"), True),
-    (lambda s: _mapper_with(loop_closer=object()), True),
+    (_system_closes_loops, False),
     (lambda s: _mapper_takes("kf_db"), False),
     (lambda s: _mapper_takes("bow_encode"), False),
     (_tracker_takes_relocalizer, False),

@@ -2,9 +2,10 @@
 same rendered RGB-D room sequence through the JAX package's tracker
 (Tracker(cfg, MapState, None, relocalizer=None), mapper off) and through the
 port's System on the CPU with its mapper off in the same way; the JAX
-tracker's sweep map that the mapping tests start from; and, for the stereo
-and monocular slices, both packages' whole Systems on a rendered sequence
-of that sensor (`run_systems`).
+tracker's sweep map that the mapping tests start from; for the stereo and
+monocular slices, both packages' whole Systems on a rendered sequence of
+that sensor (`run_systems`); and the cut RGB-D lap of the corridor circuit
+that the loop-closing tests share (`LOOP_CUT`, `render_corridor`).
 
 Size: 320x240 with the focal length and baseline scaled from the bench's
 640x480 (fx = 250, bf = 125: the same 0.5 m baseline and 12.5 m close-depth
@@ -79,10 +80,10 @@ def render_sequence(gt, sensor: str):
 
 def run_systems(gt, sensor: str, with_scale: bool, pipelined: bool = True):
     """The sequence through the JAX package's System (mapper inline, the
-    default vocabulary, keyframe database and relocalizer on; the loop
-    closer, which the port does not have yet, set to None) and through the
-    port's System on the CPU, which builds the same pieces by default. Returns (jax, port) results with the ATE (Sim(3)-aligned when
-    with_scale) and the index of the first OK frame."""
+    default vocabulary, keyframe database, relocalizer, loop closer and
+    global BA on) and through the port's System on the CPU, which builds the
+    same pieces by default. Returns (jax, port) results with the ATE
+    (Sim(3)-aligned when with_scale) and the index of the first OK frame."""
     from orbslam2_tpu.system import System as JSystem
     cfg_j, cfg_t = configs(sensor)
     items = render_sequence(gt, sensor)
@@ -100,7 +101,6 @@ def run_systems(gt, sensor: str, with_scale: bool, pipelined: bool = True):
 
     t0 = time.perf_counter()
     js = JSystem(cfg_j)
-    js.local_mapper.loop_closer = None
     jres = result(js, js.run_sequence(iter(items), pipelined=pipelined),
                   time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -108,6 +108,31 @@ def run_systems(gt, sensor: str, with_scale: bool, pipelined: bool = True):
     tres = result(ts, ts.run_sequence(iter(items), pipelined=pipelined),
                   time.perf_counter() - t0)
     return jres, tres
+
+
+# the cut lap of the corridor circuit at the test size: (frames, lap radius,
+# outer and inner half-widths of the corridor, image noise). The full-size
+# lap is 240 frames of radius 8 in make_corridor's default 10 m / 5 m
+# circuit (tests/test_loop_closure_e2e.py); this one is the shortest found
+# on which both packages close a loop at 320x240 with the mapper inline.
+LOOP_CUT = (80, 4.0, 5.5, 2.5, 2.5)
+
+
+@functools.lru_cache(maxsize=1)
+def render_corridor(n_frames: int, radius: float, outer: float, inner: float,
+                    noise: float):
+    """(ground truth [F,3,4], RGB-D items) of a lap of the corridor circuit
+    (synth.make_corridor, seed 3) at the test size, rendered with `noise`
+    and seed i."""
+    f = 500.0 * W / 640
+    scene = synth.make_corridor(seed=3, width=W, height=H, fx=f, fy=f,
+                                outer=outer, inner=inner)
+    gt = synth.corridor_trajectory(n_frames, radius=radius)
+    items = [(i / 30.0, {"image": np.clip(synth.render_room(scene, gt[i], noise=noise,
+                                                            seed=i), 0, 255).astype(np.uint8),
+                         "depth": synth.depth_room(scene, gt[i])})
+             for i in range(n_frames)]
+    return gt, items
 
 
 def render(gt):
