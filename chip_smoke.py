@@ -56,23 +56,23 @@ Phases, each printed on its own line:
 4. drives the port's synchronous path, System(cfg, device="cuda")
    .track_rgbd with the mapper inline, over the RGB-D benchmark room
    (640x480, 1000 features, bf=250, ThDepth=25): the first 12 frames of the
-   48-frame orbit and a 60-frame sweep; checks the tracked ratio, the
-   metric ATE against the exact ground truth and the keyframe count;
+   48-frame orbit and the first 60 frames of the 120-frame sweep (kept as
+   session A of phase 9b); checks the tracked ratio, the metric ATE against
+   the exact ground truth and the keyframe count;
    4b. drives the bench's path, System(cfg, device="cuda",
-   async_mapping=True).run_sequence(frames, pipelined=True): the 48-frame
-   orbit and the 120-frame sweep, with the same gates, at least one local
-   BA solve and mapper launches of `hamming_best2` on the sweep; prints the
-   mapper's stage times and counters and both kernels' launches split
-   between tracker and mapper;
+   async_mapping=True).run_sequence(frames, pipelined=True), over the
+   120-frame sweep, with the same gates, at least one local BA solve and
+   mapper launches of `hamming_best2`; prints the mapper's stage times and
+   counters and the kernels' launches split between tracker and mapper
+   (the pipelined orbits of RGB-D and stereo run from disk in phase 9c);
    4c. one block dispatch (Tracker._blk_dispatch: uploads, the 6-frame
    device call, the start of the readback) under
    torch.cuda.set_sync_debug_mode("error"): it must not wait for the card;
    once for RGB-D and once for stereo;
 5. stereo, the bench's stereo row (48-frame orbit, the right image rendered
-   0.5 m to the right with seed 10000 + i): pipelined with async mapping
-   (at least 90% tracked, metric ATE <= 3 cm, 1 `hamming_matrix` and 2
-   `hamming_best2` a tracked frame), and its first 12 frames synchronously
-   through System.track_stereo;
+   0.5 m to the right with seed 10000 + i): its first 12 frames
+   synchronously through System.track_stereo (1 `hamming_matrix` and 2
+   `hamming_best2` a tracked frame);
 6. monocular, the bench's headline row (180-frame orbit, ThDepth=35):
    pipelined with async mapping (initialized within the first 30% of the
    frames, at least 90% of the later frames tracked, Sim(3)-aligned ATE <= 8
@@ -96,11 +96,11 @@ Phases, each printed on its own line:
 8. loop closing and the background global BA on a lap of the corridor
    circuit (synth.make_corridor(seed=3), 640x480, the 240-frame
    corridor_trajectory of radius 8, images with noise 2.5), the cells of
-   tests/test_loop_closure_e2e.py, after phase 7b: the RGB-D lap in a
-   process of its own (`--loop-lap rgbd`) beside the monocular lap, which
-   closes its loop after the RGB-D lap has ended (the line says what ran
-   beside its first correction). Both laps go one frame at a time through
-   the sensor's entry point
+   tests/test_loop_closure_e2e.py, each lap in a process of its own
+   (`--loop-lap SENSOR`): the monocular lap, the longest phase, starts
+   after phase 3 and runs beside phases 4 to 9, the RGB-D lap starts after
+   phase 7b and runs beside phase 9. Both laps go one frame
+   at a time through the sensor's entry point
    (run_sequence(pipelined=False)): the block driver loses track on this
    lap in both packages (tests/torch_corridor_lap.py; PERF.md). RGB-D
    with the mapper on its worker (the loop closer on the worker's stream,
@@ -117,16 +117,43 @@ Phases, each printed on its own line:
    LoopCloser.process), ms per global-BA chunk and solve, the ATE before
    and after the first correction and at the end, and the kernels'
    launches by caller; `hamming_best2` must have
-   been launched by the loop closer (caller "loop") on both laps.
+   been launched by the loop closer (caller "loop") on both laps;
+9. map checkpoints, map merging and the dataset drivers, after phase 7b,
+   beside both laps:
+   9a. checkpoint (rgbd-sweep-120): save_map of the System phase 7 left
+   (ms and MB) into a temporary directory; a fresh System(cfg, device="cuda",
+   async_mapping=True).load_map (ms): the keyframe and point counts kept,
+   the tracker LOST, every keyframe registered (`bow_assign` launched
+   under "checkpoint"); the viewpoint of sweep frame 10 with new seeds
+   relocalizes within 4 frames, within 5 cm and 1 degree of the truth, and
+   the next 12 frames all track;
+   9b. merge (rgbd-sweep-120 halves): session A is phase 4's synchronous
+   sweep (frames 0-59), session B a new System over frames 40-99 (its world
+   its own first camera); after map_merge.merge_maps an alignment at scale
+   1, n_a + n_b keyframes from both halves, `hamming_best2` launched under
+   "merge", the merged keyframes' metric ATE under 1.5 times the JAX
+   package's reading of the cell (tests/torch_merge_cell.py); prints the
+   keyframe pair, the RANSAC inliers and the ms of alignment and merge;
+   9c. dataset drivers: rgbd-orbit-48 written as a TUM RGB-D directory
+   (colour PNGs with equal channels, u16 depth at factor 5000, rgb.txt,
+   depth.txt, associations, a settings YAML) and stereo-orbit-48 as a KITTI
+   directory (image_0, image_1, times.txt), PNGs by a small zlib writer;
+   each through run_dataset.main with its default device (the block driver,
+   the mapper inline): at least 90% tracked and a metric ATE of at most 3
+   cm from CameraTrajectory.txt (io/trajectory.load_tum), the keyframe and
+   KITTI trajectory files well formed, 1 `hamming_matrix` and 1 (RGB-D) or
+   2 (stereo) `hamming_best2` a tracked frame.
 
 The launch counts are set to 0 just before each path and read just after;
 both Hamming kernels must have been launched on the synchronous and on the
 pipelined path of every sensor, `bow_assign` by the mapper of every pipelined
-path that makes keyframes and by the relocalizer in phase 7, each time with
-the vocabulary's packed table (no call may pack it on the fly). Then it
-prints the kernel table as one JSON line, and as the last line
-{"ok": true, "device": {...}}. Any failed check raises: the script exits
-non-zero and prints no "ok" line. Imports nothing of JAX.
+path that makes keyframes, by the relocalizer in phase 7 and by the load in
+9a, each time with the vocabulary's packed table (no call may pack it on the
+fly). Then it prints the seconds of each phase (the laps of phase 8 run
+beside phases 4 to 9 and print their own), the kernel table as one JSON
+line, and as the last line {"ok": true, "device": {...}}. Any failed check
+raises: the script exits non-zero and prints no "ok" line. Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
@@ -168,13 +195,25 @@ RELOC_GATE_CM, RELOC_GATE_DEG = 5.0, 1.0  # RGB-D: the relocalized pose
 RESCUE_WIDTH, RESCUE_POINTS = 1024, 80   # phase 7b: rows and features a frame
 # phase 8: the corridor lap of tests/test_loop_closure_e2e.py and its gates
 LOOP_FRAMES, LOOP_RADIUS, LOOP_NOISE = 240, 8.0, 2.5
-LOOP_TIMEOUT_S = 900  # both laps, from the start of the RGB-D lap's process
+# both laps and phase 9, from the start of the processes of the RGB-D lap and
+# of phase 9
+LOOP_TIMEOUT_S = 900
 # the mapper of each lap: RGB-D on its worker (the loop closer on the worker's
 # stream, the global BA on a third thread), monocular inline, where the test's
 # drift premise and improvement gate were set
 LOOP_ASYNC = {"rgbd": True, "mono": False}
 LOOP_GATES = {"rgbd": dict(tracked=235, ate=0.03),
               "mono": dict(tracked=230, ate=0.06, pre_loop=0.025)}
+# phase 9
+CHECKPOINT_REVISIT_SEEDS = 4000  # new renders of the revisited viewpoint
+# 9b: the halves of the 120-frame sweep; session A is phase 4's synchronous
+# sweep (frames 0-59), session B a new System over frames 40-99
+MERGE_B = (40, 100)
+# the merged keyframes' metric ATE: 1.5 times the JAX package's 5.124 cm on
+# the same cell on a CPU at 640x480 (tests/torch_merge_cell.py), where the
+# sessions alone read 1.1 and 0.7 cm: the alignment comes from one keyframe
+# pair
+MERGE_ATE_GATE = 1.5 * 0.05124
 T = None      # orbslam2_tpu_torch.utils.cuda_timing, imported in main()
 
 
@@ -844,14 +883,13 @@ def check_reloc_rescue(P, CK) -> None:
 
 
 def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
-               async_mapping: bool, beside=None) -> dict:
+               async_mapping: bool) -> dict:
     """Phase 8, one lap of the corridor through the sensor's entry point
     (track_rgbd, track_monocular), one frame at a time, with the mapper on
     its worker (`async_mapping`) or inline. Records the ATE just before the
     first loop correction and just after it (before the global BA it
-    launches lands), and what else ran on the card then (`beside()`, where
-    given), applies the gates of tests/test_loop_closure_e2e.py and returns
-    the lap's launches."""
+    launches lands), applies the gates of tests/test_loop_closure_e2e.py and
+    returns the lap's launches."""
     from orbslam2_tpu_torch.utils.profile_frame import bench_config
     tag = f"phase 8 {sensor}"
     mono = sensor == "mono"
@@ -874,7 +912,6 @@ def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
         first = "before" not in ates
         if first:
             ates["before"], ates["frame"] = ate_now(), len(slam.tracker.frame_log)
-            ates["beside"] = beside() if beside else None
         orig_correct(kf, kc, s12, R12, t12)
         if first:
             ates["after"] = ate_now()
@@ -906,7 +943,6 @@ def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
           f"{100 * ates.get('before', float('nan')):.3f} cm (frame {ates.get('frame')}), "
           f"after it {100 * ates.get('after', float('nan')):.3f} cm, at the end (global BA "
           f"applied) {100 * ates['end']:.3f} cm"
-          + (f"; the first correction ran beside {ates.get('beside')}" if beside else "")
           + f"; global BA: {gba.full_ba_idx} launched, "
           f"{gba.n_aborted} aborted, {gba.n_applied} applied, ms per chunk of the last "
           f"solve {[round(x, 1) for x in gba.chunk_ms]}, ms per whole solve "
@@ -939,7 +975,7 @@ def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
 
 def loop_lap(sensor: str) -> int:
     """Phase 8's lap of one sensor in a process of its own (`--loop-lap
-    SENSOR`), beside the other lap in main(). The kernels and the host
+    SENSOR`), beside the phases of main(). The kernels and the host
     library are loaded from build/, where main() built them. The last line
     is the lap's kernel launches as JSON."""
     import orbslam2_tpu_torch as P
@@ -1021,6 +1057,301 @@ def check_block_sync_free(P, items, cfg, sensor: str) -> None:
           flush=True)
 
 
+def write_png(path, img: np.ndarray) -> None:
+    """A PNG of a u8 gray or RGB image or a u16 gray one (zlib, every row
+    unfiltered): the port reads it with its own decoder, as run_dataset
+    does any PNG."""
+    import struct
+    import zlib
+    h, w = img.shape[:2]
+    colour = 0 if img.ndim == 2 else 2
+    depth = 16 if img.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(img.astype(">u2" if depth == 16 else np.uint8))
+    rows = rows.view(np.uint8).reshape(h, -1)
+    raw = np.hstack([np.zeros((h, 1), np.uint8), rows]).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_settings(path, cfg, depth_factor: float = 0.0) -> None:
+    """A settings YAML in the reference's format for `cfg`."""
+    cam, orb = cfg.camera, cfg.orb
+    lines = ["%YAML:1.0"] + [f"Camera.{k}: {getattr(cam, k)}" for k in (
+        "fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "bf", "width", "height")]
+    lines += [f"Camera.fps: {cfg.fps}", "Camera.RGB: 1", f"ThDepth: {cfg.th_depth}",
+              f"ORBextractor.nFeatures: {orb.n_features}",
+              f"ORBextractor.scaleFactor: {orb.scale_factor}",
+              f"ORBextractor.nLevels: {orb.n_levels}",
+              f"ORBextractor.iniThFAST: {orb.ini_th_fast}",
+              f"ORBextractor.minThFAST: {orb.min_th_fast}"]
+    if depth_factor:
+        lines.append(f"DepthMapFactor: {depth_factor}")
+    path.write_text("\n".join(lines) + "\n")
+
+
+def write_tum_rgbd(root, items) -> None:
+    """The sequence as a TUM RGB-D directory: colour PNGs with equal
+    channels, u16 depth at factor 5000, rgb.txt, depth.txt and the
+    associations."""
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    rgb, dep, assoc = ["# color images"], ["# depth maps"], []
+    for ts, d in items:
+        name = f"{ts:.6f}.png"
+        write_png(root / "rgb" / name, np.repeat(d["image"][:, :, None], 3, axis=2))
+        write_png(root / "depth" / name,
+                  np.clip(np.round(d["depth"] * 5000.0), 0, 65535).astype(np.uint16))
+        rgb.append(f"{ts:.6f} rgb/{name}")
+        dep.append(f"{ts:.6f} depth/{name}")
+        assoc.append(f"{ts:.6f} rgb/{name} {ts:.6f} depth/{name}")
+    for fname, lines in (("rgb.txt", rgb), ("depth.txt", dep), ("associations.txt", assoc)):
+        (root / fname).write_text("\n".join(lines) + "\n")
+
+
+def write_kitti_stereo(root, items) -> None:
+    """The sequence as a KITTI odometry directory: image_0, image_1,
+    times.txt."""
+    for cam, key in (("image_0", "image"), ("image_1", "right")):
+        (root / cam).mkdir(parents=True)
+        for i, (_, d) in enumerate(items):
+            write_png(root / cam / f"{i:06d}.png", d[key])
+    (root / "times.txt").write_text("\n".join(f"{ts:.6e}" for ts, _ in items) + "\n")
+
+
+def check_dataset(CK, evaluation, traj_io, tag: str, argv: list, out, gt,
+                  sensor: str) -> dict:
+    """One run of run_dataset.main (the default device) over a directory:
+    at least 90% of the frames tracked and a metric ATE of at most 3 cm
+    from CameraTrajectory.txt, KeyFrameTrajectory.txt (and for KITTI
+    CameraTrajectoryKITTI.txt) well formed, and the tracker's launches: 1
+    hamming_matrix and, RGB-D, 1 hamming_best2 or, stereo, 2 a frame."""
+    import contextlib
+    import io
+    from orbslam2_tpu_torch import run_dataset
+    buf = io.StringIO()
+    CK.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = run_dataset.main(argv + ["--out-dir", str(out)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(CK)
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"{tag}: run_dataset: {line}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{tag}: run_dataset exited {rc}")
+    ts, centres, _ = traj_io.load_tum(out / "CameraTrajectory.txt")
+    fids = np.round(ts * 30).astype(int)
+    ate = evaluation.ate_rmse(centres, evaluation.camera_centers(gt[fids]),
+                              with_scale=False)
+    kf = np.atleast_2d(np.loadtxt(out / "KeyFrameTrajectory.txt"))
+    fails = []
+    if not (kf.shape[0] >= 1 and kf.shape[1] == 8 and np.isfinite(kf).all()):
+        fails.append(f"KeyFrameTrajectory.txt of shape {kf.shape}")
+    if sensor == "stereo":
+        kt = np.atleast_2d(np.loadtxt(out / "CameraTrajectoryKITTI.txt"))
+        R = kt.reshape(-1, 3, 4)[:, :, :3]
+        if not (kt.shape == (len(ts), 12) and np.isfinite(kt).all() and np.allclose(
+                R @ R.transpose(0, 2, 1), np.eye(3), atol=1e-4)):
+            fails.append(f"CameraTrajectoryKITTI.txt of shape {kt.shape}")
+    a = launches["hamming_matrix"].get("tracker", 0)
+    b = launches["hamming_best2"].get("tracker", 0)
+    per_frame = 2 if sensor == "stereo" else 1
+    print(f"{tag}: {sensor} run_dataset over {len(gt)} frames from disk: tracked "
+          f"{len(ts)}/{len(gt)}, metric ATE {ate * 100:.3f} cm, {kf.shape[0]} keyframes "
+          f"in KeyFrameTrajectory.txt; {seconds:.1f} s in all; kernel launches "
+          f"{launches}", flush=True)
+    if len(ts) < GATES[sensor][0] * len(gt) or not ate <= GATES[sensor][1]:
+        fails.append(f"tracked {len(ts)}/{len(gt)}, ATE {ate * 100:.3f} cm (gates: "
+                     f"{100 * GATES[sensor][0]:.0f}%, {100 * GATES[sensor][1]:.0f} cm)")
+    if a < len(ts) - 1 or b < per_frame * a:
+        fails.append(f"{a} hamming_matrix and {b} hamming_best2 launches by the tracker "
+                     f"over {len(ts)} tracked frames (gate: 1 and {per_frame} a frame)")
+    if fails:
+        raise AssertionError(f"{tag}: " + "; ".join(fails))
+    return dict(launches=launches)
+
+
+def check_checkpoint(P, CK, synth, scene, gt, saved, work) -> dict:
+    """Phase 9a: `saved`, the System that phase 7 left on rgbd-sweep-120,
+    saves its map into `work`; a fresh System with async mapping loads it.
+    The keyframe and point counts are the saved ones, the tracker is LOST,
+    every keyframe is registered (bow_assign launched under "checkpoint");
+    then the viewpoint of sweep frame RGBD_REVISIT, rendered with new seeds,
+    relocalizes within RELOC_TRIES frames within 5 cm and 1 degree of the
+    truth, and the next RELOC_ON_FRAMES frames all track."""
+    from orbslam2_tpu_torch.utils.profile_frame import bench_config
+    tag = "phase 9a"
+    path = work / "sweep120.npz"
+    expect = {"keyframes": saved.map.n_keyframes, "points": saved.map.n_points}
+    t0 = time.perf_counter()
+    saved.save_map(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    mb = path.stat().st_size / 2 ** 20
+    print(f"{tag}: save_map of rgbd-sweep-120 after phase 7 ({expect['keyframes']} "
+          f"keyframes, {expect['points']} points): {save_ms:.1f} ms, {mb:.2f} MB",
+          flush=True)
+    slam = P.System(bench_config(scene, P.Sensor.RGBD), device="cuda",
+                    async_mapping=True)
+    CK.reset_launch_counts()
+    t0 = time.perf_counter()
+    slam.load_map(path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(CK)
+    live = slam.map.kf_ids
+    counts = (slam.map.n_keyframes, slam.map.n_points)
+    registered = bool(slam.kf_db.registered[live].all())
+    print(f"{tag}: load_map into a fresh System (async mapping): {load_ms:.1f} ms; "
+          f"keyframes {counts[0]}, points {counts[1]} (saved {expect['keyframes']}, "
+          f"{expect['points']}); state {slam.tracking_state.name}; every keyframe "
+          f"registered: {registered}; kernel launches {launches}", flush=True)
+    if (counts != (expect["keyframes"], expect["points"])
+            or slam.tracking_state.name != "LOST" or not registered
+            or launches["bow_assign"].get("checkpoint", 0) != len(live)):
+        raise AssertionError(f"{tag}: the loaded System: counts {counts}, state "
+                             f"{slam.tracking_state.name}, registered {registered}, "
+                             f"launches {launches}")
+    world = np.linalg.inv(_se3(gt[0]))  # the map's world is the first camera
+    t = len(gt) / 30.0
+    CK.reset_launch_counts()
+    pose = None
+    for j in range(RELOC_TRIES):
+        img = _u8(synth, scene, gt[RGBD_REVISIT], CHECKPOINT_REVISIT_SEEDS + j)
+        pose = slam.track_rgbd(img, synth.depth_room(scene, gt[RGBD_REVISIT]), t)
+        t += 1 / 30.0
+        if pose is not None:
+            break
+    _print_attempts(tag, slam.relocalizer, 0)
+    if pose is None:
+        raise AssertionError(f"{tag}: no relocalization within {RELOC_TRIES} frames")
+    truth = (_se3(gt[RGBD_REVISIT]) @ world)[:3]
+    cm = 100 * np.linalg.norm(pose[:, :3].T @ pose[:, 3] - truth[:, :3].T @ truth[:, 3])
+    deg = _rot_deg(pose[:, :3].astype(np.float64) @ truth[:, :3].T)
+    ok = 0
+    for i in range(RGBD_REVISIT + 1, RGBD_REVISIT + 1 + RELOC_ON_FRAMES):
+        img = _u8(synth, scene, gt[i], CHECKPOINT_REVISIT_SEEDS + 100 + i)
+        ok += slam.track_rgbd(img, synth.depth_room(scene, gt[i]), t) is not None
+        t += 1 / 30.0
+    slam.shutdown()
+    on = launch_counts(CK)
+    print(f"{tag}: relocalized against the loaded map on revisit frame {j + 1} of "
+          f"{RELOC_TRIES} at the viewpoint of sweep frame {RGBD_REVISIT}: {cm:.3f} cm "
+          f"and {deg:.4f} degrees from the ground truth; then tracked {ok}/"
+          f"{RELOC_ON_FRAMES}; kernel launches {on}", flush=True)
+    if cm > RELOC_GATE_CM or deg > RELOC_GATE_DEG or ok != RELOC_ON_FRAMES:
+        raise AssertionError(f"{tag}: {cm:.2f} cm, {deg:.3f} degrees, tracked {ok}/"
+                             f"{RELOC_ON_FRAMES} (gates: {RELOC_GATE_CM} cm, "
+                             f"{RELOC_GATE_DEG} degree, all)")
+    return dict(launches=_add_launches(launches, on))
+
+
+def check_merge(P, CK, synth, evaluation, scene, gt, sys_a) -> dict:
+    """Phase 9b: session A, the System of phase 4's synchronous sweep
+    (frames 0-59), and session B, a new System over frames MERGE_B of the
+    same sweep (its world its own first camera), both with the mapper
+    inline; B's map merged into A's. Gates: an alignment found at scale 1
+    (RGB-D), A holds n_a + n_b keyframes from both halves, hamming_best2
+    launched under "merge", the merged keyframes' metric ATE under
+    MERGE_ATE_GATE."""
+    from orbslam2_tpu_torch import map_merge as MM
+    tag = "phase 9b"
+    sys_b = P.System(sys_a.cfg, device="cuda")
+    t0 = time.perf_counter()
+    tracked = 0
+    for i in range(*MERGE_B):
+        img = _u8(synth, scene, gt[i], i)
+        tracked += sys_b.track_rgbd(img, synth.depth_room(scene, gt[i]), i / 30.0) is not None
+    b_seconds = time.perf_counter() - t0
+    n_a, n_b = sys_a.map.n_keyframes, sys_b.map.n_keyframes
+    find, found_ms = MM.find_cross_map_alignment, []
+
+    def timed_find(*args, **kw):
+        t = time.perf_counter()
+        out = find(*args, **kw)
+        found_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    MM.find_cross_map_alignment = timed_find
+    CK.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        W = MM.merge_maps(sys_a, sys_b.map)
+    finally:
+        MM.find_cross_map_alignment = find
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(CK)
+    mp = sys_a.map
+    ids = mp.kf_ids
+    fids = np.round(mp.kf_timestamp[ids] * 30).astype(int)
+    ate = evaluation.ate_rmse(evaluation.camera_centers(mp.kf_pose[ids]),
+                              evaluation.camera_centers(gt[fids]), with_scale=False)
+    n = MERGE_B[1] - MERGE_B[0]
+    print(f"{tag}: session B tracked {tracked}/{n} in {b_seconds:.1f} s; keyframes A "
+          f"{n_a}, B {n_b}; alignment "
+          + (f"from keyframe pair ({W['ka']}, {W['kb']}), {W['n_inliers']} RANSAC "
+             f"inliers, scale {W['s']:.4f}" if W else "not found")
+          + f"; ms: alignment {found_ms[-1] if found_ms else float('nan'):.1f}, whole "
+          f"merge {merge_ms:.1f}; merged keyframes {mp.n_keyframes} (frames "
+          f"{fids.tolist()}), points {mp.n_points}; metric ATE of the merged keyframes "
+          f"{100 * ate:.3f} cm (gate {100 * MERGE_ATE_GATE:.3f}); kernel launches "
+          f"{launches}", flush=True)
+    fails = []
+    if W is None or W["s"] != 1.0:
+        fails.append(f"alignment {W}")
+    # keyframes of both halves: frames only A saw and frames only B saw
+    if (mp.n_keyframes != n_a + n_b or fids.min() >= MERGE_B[0]
+            or fids.max() < SYNC_SWEEP_FRAMES):
+        fails.append(f"{mp.n_keyframes} keyframes of frames {fids.tolist()}")
+    if launches["hamming_best2"].get("merge", 0) <= 0:
+        fails.append("the merge never launched hamming_best2")
+    if not ate <= MERGE_ATE_GATE:
+        fails.append(f"ATE {100 * ate:.3f} cm")
+    if fails:
+        raise AssertionError(f"{tag}: " + "; ".join(fails))
+    return dict(launches=launches)
+
+
+def check_datasets(P, CK, synth, evaluation, scene, orbit, work) -> list:
+    """Phase 9c: rgbd-orbit-48 as a TUM RGB-D directory and stereo-orbit-48
+    as a KITTI one, each through run_dataset.main (check_dataset)."""
+    from orbslam2_tpu_torch.io import trajectory as traj_io
+    from orbslam2_tpu_torch.utils.profile_frame import bench_config
+    runs = []
+    for sensor, mode, write in (("rgbd", "rgbd_tum", write_tum_rgbd),
+                                ("stereo", "stereo_kitti", write_kitti_stereo)):
+        root = work / mode
+        write(root, render_sequence(synth, scene, "orbit", orbit, sensor))
+        cfg = bench_config(scene, P.Sensor.RGBD if sensor == "rgbd" else P.Sensor.STEREO)
+        write_settings(work / f"{mode}.yaml", cfg, 5000.0 if sensor == "rgbd" else 0.0)
+        argv = [mode, str(work / f"{mode}.yaml"), str(root)]
+        if sensor == "rgbd":
+            argv.append(str(root / "associations.txt"))
+        runs.append(check_dataset(CK, evaluation, traj_io, "phase 9c", argv,
+                                  work / f"{mode}_out", orbit, sensor))
+    return runs
+
+
+def _add_launches(*runs: dict) -> dict:
+    """The launches of several runs, summed by kernel and caller."""
+    total: dict = {}
+    for r in runs:
+        for kernel, by in r.items():
+            into = total.setdefault(kernel, {})
+            for who, n in by.items():
+                into[who] = into.get(who, 0) + n
+    return total
+
+
 def kernel_checks() -> int:
     """Phases 3 and 3c without their timings: every exactness and guard-row
     check of the three kernels (the room frames aside). main() runs it in a
@@ -1064,8 +1395,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--kernel-checks"]:
         return kernel_checks()
-    if sys.argv[1:] == ["--loop-lap", "rgbd"]:
-        return loop_lap("rgbd")
+    if sys.argv[1:2] == ["--loop-lap"] and sys.argv[2:] in (["rgbd"], ["mono"]):
+        return loop_lap(sys.argv[2])
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
@@ -1081,6 +1412,14 @@ def main() -> int:
     global T
     T = cuda_timing
     t_start = time.perf_counter()
+    phase_seconds: dict = {}
+    mark = [t_start]
+
+    def lap_seconds(phase: str) -> None:
+        now = time.perf_counter()
+        phase_seconds[phase] = round(now - mark[0], 1)
+        mark[0] = now
+
     card = T.card_line()
     print(f"phase 1: card: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -1097,6 +1436,7 @@ def main() -> int:
     print(f"phase 2: built in {time.perf_counter() - t0:.2f} s "
           f"(compile seconds by library: {_build.build_seconds})", flush=True)
     blocking_kernel_checks()
+    lap_seconds("1, 2")
 
     mma_per_s = PH.mma_per_second(lib)
     if mma_per_s is None:
@@ -1127,6 +1467,21 @@ def main() -> int:
     bow = check_bow_assign(PH, lib, twotrip, voc, extracted)
     check_pnp(PNP)
     check_ba(BA)
+    lap_seconds("3")
+
+    # phase 8's monocular lap, the longest phase, in a process of its own
+    # beside phases 4 to 9; the RGB-D lap joins it after phase 7
+    import subprocess
+    import tempfile
+    laps = {}
+
+    def start_lap(sensor: str) -> None:
+        out = tempfile.TemporaryFile(mode="w+")
+        laps[sensor] = (subprocess.Popen([sys.executable, __file__, "--loop-lap", sensor],
+                                         stdout=out, stderr=subprocess.STDOUT, text=True),
+                        out, time.perf_counter() + LOOP_TIMEOUT_S)
+
+    start_lap("mono")
     mono_orbit = synth.orbit_trajectory(MONO_FRAMES)
 
     def run(tag, name, gt, sensor, pipelined, n=None, keep=False):
@@ -1135,27 +1490,29 @@ def main() -> int:
                             items, gt, cfgs[sensor], sensor, pipelined,
                             whole=sensor != "mono" or n is None, keep=keep)
 
-    sweep = synth.sweep_trajectory
+    sweep = synth.sweep_trajectory(SWEEP_FRAMES)
+    # the synchronous sweep is the first half of the pipelined one: session
+    # A of phase 9b
     sync = [run("phase 4", "orbit", orbit, "rgbd", False, SYNC_ORBIT_FRAMES),
-            run("phase 4", "sweep", sweep(SYNC_SWEEP_FRAMES), "rgbd", False)]
-    piped = [run("phase 4b", "orbit", orbit, "rgbd", True),
-             run("phase 4b", "sweep", sweep(SWEEP_FRAMES), "rgbd", True, keep=True)]
-    for runs in (sync, piped):
-        if runs[1]["kfs"] < 3:
-            raise AssertionError(f"RGB-D sweep: {runs[1]['kfs']} keyframes (gate: 3)")
-    if piped[1]["counters"]["ba_solves"] < 1:
+            run("phase 4", "sweep", sweep, "rgbd", False, SYNC_SWEEP_FRAMES, keep=True)]
+    piped = [run("phase 4b", "sweep", sweep, "rgbd", True, keep=True)]
+    for r in (sync[1], piped[0]):
+        if r["kfs"] < 3:
+            raise AssertionError(f"RGB-D sweep: {r['kfs']} keyframes (gate: 3)")
+    if piped[0]["counters"]["ba_solves"] < 1:
         raise AssertionError("pipelined sweep: no local BA solve")
-    if piped[1]["launches"]["hamming_best2"].get("mapper", 0) <= 0:
+    if piped[0]["launches"]["hamming_best2"].get("mapper", 0) <= 0:
         raise AssertionError("pipelined sweep: the mapper never launched hamming_best2")
     check_block_sync_free(P, render_sequence(synth, scene, "orbit", orbit, "rgbd"),
                           cfgs["rgbd"], "rgbd")
     check_block_sync_free(P, render_sequence(synth, scene, "orbit", orbit, "stereo"),
                           cfgs["stereo"], "stereo")
+    lap_seconds("4")
 
     # phase 5, stereo: every tracked frame runs stereo_match (hamming_best2
-    # under the row-band mask) beside the two matchers of the RGB-D frame
-    stereo = [run("phase 5", "orbit", orbit, "stereo", True),
-              run("phase 5", "orbit", orbit, "stereo", False, SYNC_ORBIT_FRAMES)]
+    # under the row-band mask) beside the two matchers of the RGB-D frame;
+    # the pipelined row runs from disk in phase 9c
+    stereo = [run("phase 5", "orbit", orbit, "stereo", False, SYNC_ORBIT_FRAMES)]
     for r in stereo:
         a = r["launches"]["hamming_matrix"]["tracker"]
         b = r["launches"]["hamming_best2"]["tracker"]
@@ -1163,6 +1520,7 @@ def main() -> int:
             raise AssertionError(f"stereo: {a} hamming_matrix and {b} hamming_best2 "
                                  f"launches by the tracker over {r['tracked']} tracked "
                                  "frames (gate: 1 and 2 a tracked frame)")
+    lap_seconds("5")
     # phase 6, monocular: initialization launches hamming_best2 under the
     # +-100 px window mask, counted apart from the tracker
     mono = [run("phase 6", "orbit", mono_orbit, "mono", True, keep=True),
@@ -1174,11 +1532,11 @@ def main() -> int:
     if mono[0]["kfs"] < 3 or c["ba_solves"] < 1 or c["points_created"] <= 0:
         raise AssertionError(f"pipelined mono: {mono[0]['kfs']} keyframes, counters {c} "
                              "(gates: 3 keyframes, 1 BA solve, 1 triangulated point)")
+    lap_seconds("6")
 
     # phase 7: relocalization and localization mode on the Systems that the
     # pipelined RGB-D sweep and the pipelined monocular orbit left
-    reloc = [dict(launches=check_reloc_rgbd(CK, synth, scene, piped[1]["system"],
-                                            sweep(SWEEP_FRAMES))),
+    reloc = [dict(launches=check_reloc_rgbd(CK, synth, scene, piped[0]["system"], sweep)),
              dict(launches=check_reloc_mono(CK, synth, scene, mono[0]["system"],
                                             mono_orbit))]
     for r, sensor in zip(reloc, ("rgbd", "mono")):
@@ -1188,29 +1546,28 @@ def main() -> int:
                                      f"launched {kernel}")
     # phase 7b: its launches are counted apart from the main paths'
     check_reloc_rescue(P, CK)
-    # phase 8: loop closing and the background global BA on the corridor
-    # lap, once every earlier phase is done: the RGB-D lap (about 2.5
-    # minutes) in a process of its own beside the monocular lap (about 7),
-    # whose closure comes after the RGB-D lap has ended
-    import subprocess
-    import tempfile
-    deadline = time.perf_counter() + LOOP_TIMEOUT_S
-    out = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, __file__, "--loop-lap", "rgbd"],
-                            stdout=out, stderr=subprocess.STDOUT, text=True)
+    lap_seconds("7")
+
+    # phase 9 in this process, beside both laps of phase 8
+    from pathlib import Path
     try:
-        corridor = synth.make_corridor(seed=3)
-        lap = synth.corridor_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS)
-        loops = [check_loop(
-            P, CK, synth, evaluation, corridor, lap, render_corridor(synth, corridor, lap),
-            "mono", LOOP_ASYNC["mono"],
-            beside=lambda: "the RGB-D lap" if proc.poll() is None else "no other lap")]
-        loops.append(finish_lap(proc, out, deadline))
+        start_lap("rgbd")
+        with tempfile.TemporaryDirectory() as tmp:
+            work = Path(tmp)
+            p9 = [check_checkpoint(P, CK, synth, scene, sweep, piped[0]["system"], work)]
+            lap_seconds("9a")
+            p9.append(check_merge(P, CK, synth, evaluation, scene, sweep, sync[1]["system"]))
+            lap_seconds("9b")
+            p9 += check_datasets(P, CK, synth, evaluation, scene, orbit, work)
+            lap_seconds("9c")
+        loops = [finish_lap(*laps[sensor]) for sensor in ("mono", "rgbd")]
     finally:
-        if proc.poll() is None:
-            proc.kill()
-        proc.wait()
-        out.close()
+        for proc, out, _ in laps.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+    lap_seconds("8, the rest of the laps")
 
     def total(runs, kernel: str) -> dict:
         by = {}
@@ -1219,14 +1576,17 @@ def main() -> int:
                 by[who] = by.get(who, 0) + n
         return by
 
-    # the main path is the bench's entry point, pipelined with async
-    # mapping, once per sensor row (and the RGB-D sweep, which maps)
-    main_path = piped + [stereo[0], mono[0]] + reloc + loops
-    others = sync + [stereo[1], mono[1]]
+    # the main path is the bench's entry point, pipelined, once per sensor
+    # row (the RGB-D sweep with async mapping, the orbits from disk through
+    # run_dataset), and the relocalization, loop, checkpoint and merge paths
+    main_path = piped + [mono[0]] + reloc + loops + p9
+    others = sync + stereo + [mono[1]]
     launches_by = {kernel: total(main_path, kernel) for kernel in KERNELS}
-    print(f"phase 8: kernel launches on the pipelined paths of all sensors, the "
-          f"relocalization paths after them and the corridor laps: {launches_by}; "
-          f"synchronous paths: {({k: total(others, k) for k in KERNELS})}; "
+    print(f"phase 9: kernel launches on the pipelined paths of all sensors, the "
+          f"relocalization paths after them, the corridor laps, the checkpoint, the "
+          f"merge and the dataset runs: {launches_by}; synchronous paths: "
+          f"{({k: total(others, k) for k in KERNELS})}", flush=True)
+    print(f"seconds per phase: {json.dumps(phase_seconds)}; "
           f"{time.perf_counter() - t_start:.1f} s since the start", flush=True)
 
     # every number in these lines is measured in this run, at the shape the

@@ -15,6 +15,8 @@ from dataclasses import dataclass, field, replace
 from enum import IntEnum
 from pathlib import Path
 
+import numpy as np
+
 from .geometry.camera import Intrinsics
 
 
@@ -87,24 +89,47 @@ _NUM = re.compile(r"^-?\d+(\.\d+)?([eE][+-]?\d+)?$")
 def _parse_opencv_yaml(path: str | Path) -> dict:
     """Minimal parser for the reference's flat OpenCV YAML files.
 
-    Handles `Key: value` scalar lines and skips the %YAML directive and
-    nested matrices (the LEFT.*/RIGHT.* rectification matrices are handled by
-    io/datasets.py via cv2 when present).
+    Handles `Key: value` scalar lines and `Key: !!opencv-matrix` blocks (the
+    LEFT.*/RIGHT.* rectification matrices of the EuRoC stereo settings, read
+    by io/rectify.py) with their rows, cols and data, the data list possibly
+    over several lines; returns floats, strings and float64 arrays. Skips
+    the %YAML directive.
     """
-    out: dict[str, float | str] = {}
-    for line in Path(path).read_text().splitlines():
+    out: dict[str, float | str | np.ndarray] = {}
+    lines = iter(Path(path).read_text().splitlines())
+    for line in lines:
         line = line.split("#")[0].strip()
         if not line or line.startswith("%") or line.startswith("-") or ":" not in line:
             continue
         key, _, val = line.partition(":")
         key, val = key.strip(), val.strip().strip('"')
-        if not val:
+        if val == "!!opencv-matrix":
+            out[key] = _parse_opencv_matrix(key, lines)
+        elif not val:
             continue
-        if _NUM.match(val):
+        elif _NUM.match(val):
             out[key] = float(val)
         else:
             out[key] = val
     return out
+
+
+def _parse_opencv_matrix(key: str, lines) -> np.ndarray:
+    """The rows / cols / dt / data fields of one opencv-matrix block."""
+    fields: dict[str, str] = {}
+    try:
+        for line in lines:
+            name, _, val = line.split("#")[0].strip().partition(":")
+            fields[name.strip()] = val.strip()
+            if name.strip() == "data":
+                while "]" not in fields["data"]:
+                    fields["data"] += " " + next(lines).split("#")[0].strip()
+                break
+        rows, cols = int(fields["rows"]), int(fields["cols"])
+        data = [float(x) for x in fields["data"].strip("[] ").replace(",", " ").split()]
+        return np.array(data, np.float64).reshape(rows, cols)
+    except (KeyError, ValueError, StopIteration) as e:
+        raise ValueError(f"malformed opencv-matrix {key}: {fields}") from e
 
 
 def load_settings(path: str | Path, sensor: Sensor = Sensor.MONOCULAR) -> SlamConfig:

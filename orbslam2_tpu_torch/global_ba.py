@@ -50,7 +50,7 @@ from .utils.metrics import log_event
 
 class GlobalBA:
     def __init__(self, cfg: SlamConfig, mp: MapState,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.map = mp
         self.device = torch.device(device)

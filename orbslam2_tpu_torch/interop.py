@@ -16,8 +16,6 @@ from .io.vocabulary import Vocabulary
 from .map.keyframe_db import KeyFrameDatabase
 from .map.mapstate import MapState
 
-_DESC_FIELDS = ("kf_desc", "pt_desc")
-
 
 def desc_u32_to_i32(desc: np.ndarray) -> np.ndarray:
     """uint32 descriptor words -> int32 with the same bits."""
@@ -29,40 +27,13 @@ def desc_i32_to_u32(desc: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(desc, np.int32).view(np.uint32)
 
 
-def map_from_numpy(arrays: dict, cfg: SlamConfig) -> MapState:
+def map_from_numpy(arrays, cfg: SlamConfig) -> MapState:
     """Build the port's MapState from the JAX package's map arrays: the npz
     that orbslam2_tpu's MapState.save writes (np.load(path)), or a dict of
     a live MapState's fields ({k: getattr(mp, k) for k in
-    MapState._ARRAY_FIELDS} plus next_kf_id / next_pt_id)."""
-    n_feat = int(arrays["n_feat"]) if "n_feat" in arrays else arrays["kf_xy"].shape[1]
-    mp = MapState(cfg, n_feat)
-    for k in MapState._ARRAY_FIELDS:
-        if k not in arrays:
-            continue
-        a = np.asarray(arrays[k])
-        if k in _DESC_FIELDS:
-            a = desc_u32_to_i32(a)
-        setattr(mp, k, a.astype(getattr(mp, k).dtype, copy=True))
-    n_pts = mp.pt_valid.shape[0]
-    mp.pt_redirect = np.full(n_pts, -1, np.int32)
-    if "next_kf_id" in arrays:
-        mp.next_kf_id = int(arrays["next_kf_id"])
-    else:
-        kfs = np.flatnonzero(mp.kf_valid)
-        mp.next_kf_id = int(kfs[-1]) + 1 if len(kfs) else 0
-    if "next_pt_id" in arrays:
-        mp.next_pt_id = min(int(arrays["next_pt_id"]), n_pts)
-    else:
-        used = np.flatnonzero(mp.pt_valid)
-        mp.next_pt_id = int(used[-1]) + 1 if len(used) else 0
-    # no live frame holds point ids of this map: freed slots are reusable
-    mp._pt_free = [int(i) for i in np.flatnonzero(~mp.pt_valid[:mp.next_pt_id])]
-    for k, a, T in zip(arrays.get("retired_k", ()), arrays.get("retired_anchor", ()),
-                       arrays.get("retired_T", ())):
-        mp.kf_retired[int(k)] = (int(a), np.asarray(T, np.float32))
-    mp.generation += 1
-    mp._dirty_pts = None  # the device mirror uploads the whole table
-    return mp
+    MapState._ARRAY_FIELDS} plus next_kf_id / next_pt_id). The array path
+    of MapState.load."""
+    return MapState.from_arrays(arrays, cfg)
 
 
 def vocabulary_from_numpy(arrays) -> Vocabulary:

@@ -1,16 +1,88 @@
-"""Synthetic textured-room sequences with exact ground truth.
+"""Synthetic sequences with exact ground truth.
 
-The room and corridor scenes of orbslam2_tpu/io/synth.py, copied (numpy
-only) so that the port and chip_smoke.py can render the benchmark and loop
-sequences on a machine without JAX: a textured room and a square corridor
-circuit rendered by exact ray-plane intersection, their depth maps, and the
-orbit, sweep, corridor-lap and in-room loop camera trajectories.
+orbslam2_tpu/io/synth.py, copied (numpy only) so that the port and
+chip_smoke.py can render the benchmark, loop and endurance sequences on a
+machine without JAX: the scene of textured squares (make_scene, render,
+make_sequence); a textured room, a square corridor circuit and two nested
+corridor rings rendered by exact ray-plane intersection, and their depth
+maps; the orbit, sweep, corridor-lap, two-ring and in-room loop camera
+trajectories.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+
+@dataclass
+class SynthScene:
+    pts: np.ndarray        # [M, 3] world points
+    subtex: np.ndarray     # [M, S, S] per-square texture: makes each square's
+    #                        corners DISTINCTIVE (uniform squares alias —
+    #                        every bright-square corner gets the same rotated
+    #                        BRIEF descriptor, which systematically mismatches
+    #                        to neighboring squares and biases BA)
+    size_world: np.ndarray  # [M] half-size in meters
+    K: np.ndarray          # [3, 3]
+    width: int
+    height: int
+
+    @property
+    def intensity(self):  # mean brightness, kept for older callers
+        return self.subtex.mean(axis=(1, 2))
+
+
+def make_scene(seed=0, n_pts=600, width=640, height=480,
+               fx=500.0, fy=500.0, depth_range=(4.0, 9.0),
+               spread=(6.0, 4.5)) -> SynthScene:
+    rng = np.random.default_rng(seed)
+    pts = np.stack([
+        rng.uniform(-spread[0], spread[0], n_pts),
+        rng.uniform(-spread[1], spread[1], n_pts),
+        rng.uniform(*depth_range, n_pts),
+    ], -1).astype(np.float32)
+    # unique 3x3 high-contrast texture per square
+    subtex = rng.uniform(0, 255, (n_pts, 3, 3)).astype(np.float32)
+    # push cells away from the background gray for strong corners
+    subtex = np.where(subtex > 128, np.maximum(subtex, 180.0),
+                      np.minimum(subtex, 70.0))
+    size = rng.uniform(0.03, 0.07, n_pts).astype(np.float32)
+    K = np.array([[fx, 0, width / 2], [0, fy, height / 2], [0, 0, 1]], np.float32)
+    return SynthScene(pts, subtex, size, K, width, height)
+
+
+def render(scene: SynthScene, Tcw: np.ndarray, noise=1.5, seed=0) -> np.ndarray:
+    """Render one view. Painter's algorithm: far squares first."""
+    R, t = Tcw[:3, :3], Tcw[:3, 3]
+    pc = scene.pts @ R.T + t
+    z = pc[:, 2]
+    vis = z > 0.5
+    uv = pc[:, :2] / np.maximum(z[:, None], 1e-6)
+    u = scene.K[0, 0] * uv[:, 0] + scene.K[0, 2]
+    v = scene.K[1, 1] * uv[:, 1] + scene.K[1, 2]
+    half = scene.size_world * scene.K[0, 0] / np.maximum(z, 1e-6)
+    img = np.full((scene.height, scene.width), 128.0, np.float32)
+    S = scene.subtex.shape[1]
+    order = np.argsort(-z)
+    for i in order:
+        if not vis[i]:
+            continue
+        h = half[i]
+        x0, x1 = int(u[i] - h), int(u[i] + h) + 1
+        y0, y1 = int(v[i] - h), int(v[i] + h) + 1
+        if x1 <= 0 or y1 <= 0 or x0 >= scene.width or y0 >= scene.height:
+            continue
+        xs0, xs1 = max(x0, 0), min(x1, scene.width)
+        ys0, ys1 = max(y0, 0), min(y1, scene.height)
+        # nearest-neighbor sample of the square's SxS texture
+        cx = np.clip(((np.arange(xs0, xs1) - x0) * S) // max(x1 - x0, 1), 0, S - 1)
+        cy = np.clip(((np.arange(ys0, ys1) - y0) * S) // max(y1 - y0, 1), 0, S - 1)
+        img[ys0:ys1, xs0:xs1] = scene.subtex[i][np.ix_(cy, cx)]
+    if noise > 0:
+        rng = np.random.default_rng(seed)
+        img = img + rng.normal(0, noise, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255)
 
 
 @dataclass
@@ -201,6 +273,150 @@ def make_corridor(seed=0, width=640, height=480, fx=500.0, fy=500.0,
     return RoomScene(planes, K, width, height)
 
 
+def make_corridor_rings(seed=0, width=640, height=480, fx=500.0, fy=500.0,
+                        outer=16.0, shared=10.0, inner=5.0, half_h=2.0,
+                        door=2.0) -> RoomScene:
+    """TWO nested square corridor rings sharing the wall at |x|,|z| =
+    shared, connected by a doorway in the x=+shared wall at |z| <= door.
+
+    A route lapping ring 1, passing the door, lapping ring 2 and
+    returning contains TWO distinct topological loops — the multi-closure
+    regime of KITTI 00 — whereas a single ring admits exactly one
+    explicit closure (see BASELINE.md round-5 endurance notes)."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[fx, 0, width / 2], [0, fy, height / 2], [0, 0, 1]],
+                 np.float32)
+    planes = []
+    Y = np.array([0.0, 1.0, 0.0])
+    Z = np.array([0.0, 0.0, 1.0])
+    X = np.array([1.0, 0.0, 0.0])
+
+    def wall(o, n, bu, ext_u, sc):
+        planes.append((np.asarray(o, float), np.asarray(n, float),
+                       np.asarray(bu, float), Y, _corner_texture(rng), sc,
+                       (ext_u[0], ext_u[1], -half_h, half_h)))
+
+    # outer ring boundary at +-outer
+    for sgn in (-1.0, 1.0):
+        wall([sgn * outer, 0, 0], [-sgn, 0, 0], Z, (-outer, outer), 45.0)
+        wall([0, 0, sgn * outer], [0, 0, -sgn], X, (-outer, outer), 45.0)
+    # shared box at +-shared (two-sided planes; the ray tracer does not
+    # cull by normal sign). The x=+shared wall carries doorway A (the
+    # outbound transit) and the z=-shared wall doorway B (the return) —
+    # separate doors let both transits run straight without the path
+    # ever doubling back through itself.
+    wall([-shared, 0, 0], [1, 0, 0], Z, (-shared, shared), 60.0)
+    wall([0, 0, shared], [0, 0, -1], X, (-shared, shared), 60.0)
+    wall([0, 0, -shared], [0, 0, 1], X, (-shared, -door), 60.0)
+    wall([0, 0, -shared], [0, 0, 1], X, (door, shared), 60.0)
+    wall([shared, 0, 0], [-1, 0, 0], Z, (-shared, -door), 60.0)
+    wall([shared, 0, 0], [-1, 0, 0], Z, (door, shared), 60.0)
+    # inner box at +-inner
+    for sgn in (-1.0, 1.0):
+        wall([sgn * inner, 0, 0], [sgn, 0, 0], Z, (-inner, inner), 60.0)
+        wall([0, 0, sgn * inner], [0, 0, sgn], X, (-inner, inner), 60.0)
+    # floor and ceiling
+    planes.append((np.array([0.0, half_h, 0.0]), np.array([0.0, -1.0, 0.0]),
+                   X, Z, _corner_texture(rng), 45.0,
+                   (-outer, outer, -outer, outer)))
+    planes.append((np.array([0.0, -half_h, 0.0]), np.array([0.0, 1.0, 0.0]),
+                   X, Z, _corner_texture(rng), 45.0,
+                   (-outer, outer, -outer, outer)))
+    return RoomScene(planes, K, width, height)
+
+
+def waypoint_trajectory(waypoints, n_frames: int, smooth: int = 41,
+                        y_wobble: float = 0.015):
+    """Constant-arc-length resampling of a 3D waypoint polyline with
+    moving-average corner rounding; camera z = direction of travel.
+    Returns [F, 3, 4] Tcw. The smoothing window bounds the angular rate
+    through corners (90-degree turns spread over ~`smooth` frames)."""
+    P = np.asarray(waypoints, np.float64)
+    # drop zero-length segments: duplicated junction waypoints create
+    # repeated arc-length values, which bunch dense samples at the
+    # junction and defeat the corner smoothing exactly where it matters
+    keep = np.concatenate(
+        [[True], np.linalg.norm(np.diff(P, axis=0), axis=1) > 1e-9])
+    P = P[keep]
+    # densify the polyline, then resample at constant arc length
+    seg = np.linalg.norm(np.diff(P, axis=0), axis=1)
+    cum = np.concatenate([[0.0], np.cumsum(seg)])
+    dense_s = np.linspace(0.0, cum[-1], max(n_frames * 4, 4000))
+    D = np.stack([np.interp(dense_s, cum, P[:, k]) for k in range(3)], -1)
+    # moving-average smooth (rounds corners, slows through them)
+    w = max(int(smooth) * 4 | 1, 5)
+    pad = w // 2
+    Dp = np.concatenate([D[:1].repeat(pad, 0), D, D[-1:].repeat(pad, 0)])
+    kern = np.ones(w) / w
+    Ds = np.stack([np.convolve(Dp[:, k], kern, "valid") for k in range(3)], -1)
+    # re-resample the smoothed curve at constant arc length
+    seg2 = np.linalg.norm(np.diff(Ds, axis=0), axis=1)
+    cum2 = np.concatenate([[0.0], np.cumsum(seg2)])
+    s = np.linspace(0.0, cum2[-1], n_frames)
+    C = np.stack([np.interp(s, cum2, Ds[:, k]) for k in range(3)], -1)
+    C[:, 1] += y_wobble * np.sin(np.arange(n_frames) * 0.11)
+    # heading from the tangent
+    T = np.gradient(C, axis=0)
+    T /= np.maximum(np.linalg.norm(T, axis=1, keepdims=True), 1e-9)
+    poses = []
+    up = np.array([0.0, 1.0, 0.0])
+    for i in range(n_frames):
+        z_cam = T[i]
+        x_cam = np.cross(up, z_cam)
+        x_cam /= max(np.linalg.norm(x_cam), 1e-9)
+        y_cam = np.cross(z_cam, x_cam)
+        Rwc = np.stack([x_cam, y_cam, z_cam], axis=1)
+        Rcw = Rwc.T
+        poses.append(np.hstack([Rcw, (-Rcw @ C[i])[:, None]]
+                               ).astype(np.float32))
+    return np.stack(poses)
+
+
+def rings_trajectory(n_frames: int, r1=8.2, r2=15.0, lap1=1.1, lap2=1.25,
+                     tail=0.35):
+    """The two-loop route through make_corridor_rings: lap ring 1 (its
+    revisit closes loop #1), exit the doorway, lap ring 2 (loop #2),
+    return, and finish with a partial ring-1 lap. The revisit overlap of
+    each lap spirals slightly INWARD (r shrinks ~0.5 m over the lap) so
+    the overshoot past the start point crosses the earlier track
+    laterally instead of doubling back through it — no cusp, bounded
+    angular rate. Waypoints on circles around the origin; the door
+    transit runs along +x at z = 0."""
+    def spiral(r0, r1_, th0, th1, n):
+        th = np.linspace(th0, th1, n)
+        r = np.linspace(r0, r1_, n)
+        return np.stack([r * np.sin(th), np.zeros_like(th),
+                         r * np.cos(th)], -1)
+    two_pi = 2.0 * np.pi
+    half_pi = 0.5 * np.pi
+    # Radii must clear the square bands' inscribed-circle limits: a
+    # circle of radius r inside band {w_in < max|x|,|z| < w_out} needs
+    # r/sqrt(2) > w_in. Ring 1 (5..10): r in (7.1, 10) -> 8.2 -> 7.8;
+    # ring 2 (10..16): r in (14.2, 16) -> 15.0 -> 14.6.
+    #
+    # ring 1: `lap1` inward-spiralling laps STARTING 0.2 laps before door
+    # A (door A sits on the +x axis, theta=pi/2) so the revisit overlap
+    # past 1.0 lap ends just SHORT of the door, heading toward it — the
+    # exit chord then continues forward (no reversal). Loop #1 closes
+    # during that overlap.
+    th0 = half_pi - 0.2 * two_pi
+    a = spiral(r1, r1 - 0.4, th0, th0 + lap1 * two_pi, 160)
+    ax, az = a[-1, 0], a[-1, 2]
+    transit_out = np.array([[ax, 0.0, az], [10.2, 0.0, -0.3],
+                            [r2, 0.0, 0.0]])
+    # ring 2: enter at door A, spiral `lap2` laps — the revisit overlap
+    # past 1.0 lap closes loop #2, and the extra quarter-lap delivers the
+    # camera to door B (theta=pi, the -z axis) without reversing
+    b = spiral(r2, r2 - 0.4, half_pi, half_pi + lap2 * two_pi, 220)
+    bx, bz = b[-1, 0], b[-1, 2]
+    r_tail = r1 - 0.4
+    transit_back = np.array([[bx, 0.0, bz], [0.0, 0.0, -r_tail]])
+    # tail: a partial ring-1 lap in the corrected map
+    c = spiral(r_tail, r_tail, np.pi, np.pi + tail * two_pi, 60)
+    pts = np.concatenate([a, transit_out, b, transit_back, c])
+    return waypoint_trajectory(pts, n_frames)
+
+
 def corridor_trajectory(n_frames: int, radius=8.0, laps=1.0, helix=0.0):
     """Circular circuit of `radius` inside the corridor, camera facing its
     direction of travel (tangent): the classic revisit-after-a-lap
@@ -271,22 +487,37 @@ def orbit_trajectory(n_frames: int, radius=0.8, forward=0.0, seed=0):
     return np.stack(poses)
 
 
-def sweep_trajectory(n_frames: int, step=0.07):
-    """Constant-speed one-way lateral sweep facing the back wall: the
-    monocular two-view-initialization + tracking workload, and the RGB-D
-    workload that leaves the first keyframe's view. One-way: the
+def sweep_trajectory(n_frames: int, step=0.07, one_way=True, amplitude=1.8):
+    """Constant-speed lateral sweep facing the back wall: the monocular
+    two-view-initialization + tracking workload. One-way by default: the
     reference's constant-velocity motion model loses tracking at zig-zag
     reversals, and its initializer keeps the FIRST frame as reference while
     >=100 matches persist, so parallax ACCUMULATES — step=0.07 m/frame
-    over the rich-texture room with light noise is the measured recipe
-    where the reference binary initializes once and tracks the whole
-    sequence (BASELINE.md mono head-to-head). Returns [F, 3, 4] Tcw."""
+    one-way over the rich-texture room with light noise is the measured
+    recipe where the reference binary initializes once and tracks the whole
+    sequence (BASELINE.md mono head-to-head). one_way=False restores the
+    r2 zig-zag. Returns [F, 3, 4] Tcw."""
     poses = []
+    if one_way:
+        for i in range(n_frames):
+            x = -0.5 * step * n_frames + step * i
+            C = np.array([x, 0.03 * np.sin(i * 0.5), 0.0], np.float32)
+            R = np.eye(3, dtype=np.float32)
+            poses.append(np.hstack([R, (-R @ C)[:, None]]).astype(np.float32))
+        return np.stack(poses)
+    x, direction = 0.0, 1.0
     for i in range(n_frames):
-        x = -0.5 * step * n_frames + step * i
-        C = np.array([x, 0.03 * np.sin(i * 0.5), 0.0], np.float32)
-        R = np.eye(3, dtype=np.float32)
-        poses.append(np.hstack([R, (-R @ C)[:, None]]).astype(np.float32))
+        C = np.array([x, 0.04 * np.sin(i * 0.7), 0.0], np.float32)
+        # gentle yaw into the direction of travel (keeps views overlapping)
+        yaw = 0.05 * direction
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        Rwc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
+        Rcw = Rwc.T
+        poses.append(np.hstack([Rcw, (-Rcw @ C)[:, None]]).astype(np.float32))
+        x += direction * step
+        if abs(x) > amplitude:
+            direction = -direction
+            x = np.clip(x, -amplitude, amplitude) + direction * step
     return np.stack(poses)
 
 
@@ -304,3 +535,11 @@ def loop_trajectory(n_frames: int, radius=1.5, seed=0):
         Rcw = Rwc.T
         poses.append(np.hstack([Rcw, (-Rcw @ C)[:, None]]).astype(np.float32))
     return np.stack(poses)
+
+
+def make_sequence(n_frames=60, seed=0, **scene_kw):
+    """Convenience: scene + trajectory + rendered frames generator."""
+    scene = make_scene(seed=seed, **scene_kw)
+    poses = orbit_trajectory(n_frames)
+    frames = [render(scene, poses[i], seed=seed * 1000 + i) for i in range(n_frames)]
+    return scene, poses, frames

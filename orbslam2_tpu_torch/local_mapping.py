@@ -173,7 +173,7 @@ class KFStore:
 class LocalMapper:
     def __init__(self, cfg: SlamConfig, mp: MapState, loop_closer=None,
                  kf_db=None, bow_encode=None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.loop_closer = loop_closer
         self.map = mp

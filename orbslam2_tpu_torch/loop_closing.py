@@ -54,7 +54,7 @@ FUSE_GROUP = 16      # keyframes of the corrected group that SearchAndFuse visit
 
 class LoopCloser:
     def __init__(self, cfg: SlamConfig, mp: MapState, kf_db: KeyFrameDatabase,
-                 global_ba, device: torch.device | str = "cpu"):
+                 global_ba, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.map = mp
         self.kf_db = kf_db

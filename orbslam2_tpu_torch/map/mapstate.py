@@ -543,7 +543,8 @@ class MapState:
             keep = order[:1]
         return keep[:n] if n is not None else keep
 
-    # the arrays of the JAX package's map checkpoint (interop.map_from_numpy)
+    # ------------------------------------------------------------- checkpoint
+    # the arrays of a map checkpoint, the JAX package's layout
     _ARRAY_FIELDS = (
         "kf_valid", "kf_pose", "kf_timestamp", "kf_frame_id", "kf_xy",
         "kf_octave", "kf_angle", "kf_desc", "kf_depth", "kf_ur",
@@ -552,6 +553,75 @@ class MapState:
         "pt_first_kf", "pt_visible", "pt_found", "kf_parent",
         "kf_patch", "pt_patch", "kf_xy0", "kf_ur0", "kf_bow_node",
     )
+    # stored as int32 bit-views here, as the uint32 words in a checkpoint
+    _DESC_FIELDS = ("kf_desc", "pt_desc")
+
+    def save(self, path):
+        """Checkpoint the whole map as one npz in the JAX package's layout
+        and dtypes (descriptors as uint32 words), so that either package
+        loads the other's file (the reference's SaveMap is a TODO,
+        include/System.h:112-114)."""
+        from ..interop import desc_i32_to_u32
+        arrays = {k: getattr(self, k) for k in self._ARRAY_FIELDS}
+        for k in self._DESC_FIELDS:
+            arrays[k] = desc_i32_to_u32(arrays[k])
+        retired_k = np.array(list(self.kf_retired.keys()), np.int64)
+        retired_anchor = np.array([v[0] for v in self.kf_retired.values()], np.int64)
+        retired_T = (np.stack([v[1] for v in self.kf_retired.values()])
+                     if self.kf_retired else np.zeros((0, 3, 4), np.float32))
+        np.savez_compressed(path, n_feat=self.n_feat, next_kf_id=self.next_kf_id,
+                            next_pt_id=self.next_pt_id,
+                            retired_k=retired_k, retired_anchor=retired_anchor,
+                            retired_T=retired_T, **arrays)
+
+    @classmethod
+    def load(cls, path, cfg: SlamConfig) -> "MapState":
+        """A map checkpoint of either package (MapState.save)."""
+        with np.load(path) as z:
+            return cls.from_arrays(z, cfg)
+
+    @classmethod
+    def from_arrays(cls, arrays, cfg: SlamConfig) -> "MapState":
+        """The map of checkpoint arrays: an npz (np.load) or a dict with the
+        same keys, the JAX package's dtypes (uint32 descriptor words). Each
+        array sits in a map of the configured capacity: where the saved
+        capacity differs, the overlap is copied. A field the arrays lack
+        keeps its empty value; without next_kf_id / next_pt_id the next ids
+        follow the highest used slot. Freed point slots are allocatable at
+        once (no frame holds point ids across a load), and the point mirror
+        uploads the whole table."""
+        from ..interop import desc_u32_to_i32
+        n_feat = int(arrays["n_feat"]) if "n_feat" in arrays else arrays["kf_xy"].shape[1]
+        mp = cls(cfg, n_feat)
+        for k in cls._ARRAY_FIELDS:
+            if k not in arrays:
+                continue
+            arr = np.asarray(arrays[k])
+            if k in cls._DESC_FIELDS:
+                arr = desc_u32_to_i32(arr)
+            tgt = getattr(mp, k)
+            if arr.shape != tgt.shape:
+                sl = tuple(slice(0, min(a, b)) for a, b in zip(arr.shape, tgt.shape))
+                tgt[sl] = arr[sl]
+            else:
+                setattr(mp, k, arr.astype(tgt.dtype, copy=True))
+        if "next_kf_id" in arrays:
+            mp.next_kf_id = int(arrays["next_kf_id"])
+        else:
+            kfs = np.flatnonzero(mp.kf_valid)
+            mp.next_kf_id = int(kfs[-1]) + 1 if len(kfs) else 0
+        if "next_pt_id" in arrays:
+            mp.next_pt_id = min(int(arrays["next_pt_id"]), mp.pt_valid.shape[0])
+        else:
+            used = np.flatnonzero(mp.pt_valid)
+            mp.next_pt_id = int(used[-1]) + 1 if len(used) else 0
+        mp._pt_free = [int(i) for i in np.flatnonzero(~mp.pt_valid[:mp.next_pt_id])]
+        for k, a, T in zip(arrays.get("retired_k", ()), arrays.get("retired_anchor", ()),
+                           arrays.get("retired_T", ())):
+            mp.kf_retired[int(k)] = (int(a), np.asarray(T, np.float32))
+        mp.generation += 1
+        mp._dirty_pts = None
+        return mp
 
     # ------------------------------------------------------- derived refreshes
     def refresh_point_stats(self, pt_ids: np.ndarray):

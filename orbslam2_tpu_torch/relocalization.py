@@ -45,7 +45,7 @@ RESCUE_CAP = 1024  # most points one rescue pass projects
 
 class Relocalizer:
     def __init__(self, cfg: SlamConfig, mp: MapState, voc: Vocabulary,
-                 db: KeyFrameDatabase, device: torch.device | str = "cpu"):
+                 db: KeyFrameDatabase, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.map = mp
         self.voc = voc

@@ -8,11 +8,13 @@ reference's API surface (include/System.h:63-110):
     track_monocular(img, t) -> Tcw [3,4] or None
     track_stereo(left, right, t) -> Tcw [3,4] or None
     track_rgbd(rgb, depth, t) -> Tcw [3,4] or None
-    run_sequence(frames, pipelined=True)
+    run_sequence(frames, progress_every=0, pipelined=True)
     activate_localization_mode() / deactivate_localization_mode()
-    save_trajectory_tum(path)
+    save_trajectory_tum / save_keyframe_trajectory_tum /
+        save_trajectory_kitti(path)
+    save_map(path) / load_map(path)
     map_stats()
-    wait_for_mapping() / reset() / shutdown()
+    wait_for_mapping() / request_reset() / reset() / shutdown()
 
 `vocabulary` is a Vocabulary, the path of an .npz or of an ORBvoc text file;
 None loads the vocabulary shipped with the package. With it the System builds
@@ -34,8 +36,12 @@ thread (loop_closing.LoopCloser). A closed loop launches the global BA
 closer applies its result at a later keyframe, and shutdown() waits for it
 and applies it.
 
+A map checkpoint is one npz in the JAX package's layout, so either package
+loads the other's file. load_map rebuilds everything that sees the map and
+leaves the tracker LOST, so the next frame relocalizes against it.
+
 What the port does not do yet raises NotImplementedError naming the
-ROADMAP.md item that brings it: map save/load.
+ROADMAP.md item that brings it: the live viewer (use_viewer=True).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
 from .map.keyframe_db import KeyFrameDatabase
 from .map.mapstate import MapState
+from .ops.cuda_kernels import launches_counted_as
 from .ops.features import padded_capacity
 from .relocalization import Relocalizer
 from .tracking import Tracker, TrackState, sequence_item
@@ -68,7 +75,10 @@ def _not_ported(what: str, item: str):
 class System:
     def __init__(self, cfg: SlamConfig, device: torch.device | str = "cuda",
                  async_mapping: bool = False,
-                 vocabulary: Vocabulary | str | Path | None = None):
+                 vocabulary: Vocabulary | str | Path | None = None,
+                 use_viewer: bool = False):
+        if use_viewer:
+            raise _not_ported("the live viewer", "15e, viz/")
         self.cfg = cfg
         self.device = torch.device(device)
         if vocabulary is None:
@@ -83,17 +93,21 @@ class System:
         self._queue: queue.Queue | None = None
         self._worker: threading.Thread | None = None
         self._error: Exception | None = None  # the mapping worker's failure
+        # a reset asked for off the tracking thread (request_reset)
+        self._reset_pending = False
         self._build()
         if async_mapping:
             self._queue = queue.Queue(maxsize=3)
             self._worker = threading.Thread(target=self._mapping_loop, daemon=True)
             self._worker.start()
 
-    def _build(self):
+    def _build(self, mp: MapState | None = None):
+        """Build the map (or take `mp`) and everything that sees it."""
         # keyframes are as wide as the widest frame: monocular
         # initialization extracts twice the feature budget
         wide = 2 if self.cfg.sensor == Sensor.MONOCULAR else 1
-        self.map = MapState(self.cfg, padded_capacity(self.cfg.orb.n_features * wide))
+        self.map = mp if mp is not None else MapState(
+            self.cfg, padded_capacity(self.cfg.orb.n_features * wide))
         self.kf_db = KeyFrameDatabase(self.cfg, self.map, self.vocabulary.n_words)
         self.relocalizer = Relocalizer(self.cfg, self.map, self.vocabulary,
                                        self.kf_db, device=self.device)
@@ -237,6 +251,11 @@ class System:
             created_keyframe=created_keyframe)
 
     def _tracked(self, timestamp: float, fn):
+        if self._reset_pending:
+            # the reference's mbReset handshake (src/System.cpp:255-262):
+            # a reset asked for off-thread is applied on the tracking thread
+            self._reset_pending = False
+            self.reset()
         kfs_before = self.map.n_keyframes
         t0 = time.perf_counter()
         pose = fn()
@@ -244,32 +263,40 @@ class System:
                      self.map.n_keyframes != kfs_before)
         return pose
 
-    def run_sequence(self, frames, pipelined: bool = True):
+    def run_sequence(self, frames, progress_every: int = 0, pipelined: bool = True):
         """Sequence runner over (timestamp, {"image", "depth"?, "right"?})
         pairs: a depth map for RGB-D, a right image for stereo. Returns the
-        number of tracked frames.
+        number of tracked frames; with progress_every = n it prints the
+        map's statistics every n frames.
 
         pipelined=True: the block driver (Tracker.run_blocked), 6 frames
         per device call with two blocks in flight; each frame's track_ms is
         its share of its block (the driver's last_frame_ms).
         pipelined=False: one synchronous frame at a time, which is also
         what localization mode runs."""
-        tracked = 0
         if pipelined and not self.localization_mode_active:
-            for ts, pose in self.tracker.run_blocked(frames, self._gray):
-                self._record(ts, self.tracker.last_frame_ms, False)
-                tracked += int(pose is not None)
-            return tracked
-        for ts, data in frames:
-            img, depth, right = sequence_item(data, self.cfg.sensor)
-            if self.cfg.sensor == Sensor.RGBD:
-                pose = self.track_rgbd(img, depth, ts)
-            elif self.cfg.sensor == Sensor.STEREO:
-                pose = self.track_stereo(img, right, ts)
-            else:
-                pose = self.track_monocular(img, ts)
+            poses = self._track_blocked(frames)
+        else:
+            poses = (self._track_item(ts, data) for ts, data in frames)
+        tracked = 0
+        for n, pose in enumerate(poses, 1):
             tracked += int(pose is not None)
+            if progress_every and n % progress_every == 0:
+                print(f"frame {n}: {self.map_stats()}", flush=True)
         return tracked
+
+    def _track_blocked(self, frames):
+        for ts, pose in self.tracker.run_blocked(frames, self._gray):
+            self._record(ts, self.tracker.last_frame_ms, False)
+            yield pose
+
+    def _track_item(self, ts: float, data: dict):
+        img, depth, right = sequence_item(data, self.cfg.sensor)
+        if self.cfg.sensor == Sensor.RGBD:
+            return self.track_rgbd(img, depth, ts)
+        if self.cfg.sensor == Sensor.STEREO:
+            return self.track_stereo(img, right, ts)
+        return self.track_monocular(img, ts)
 
     @staticmethod
     def _gray(img: np.ndarray) -> np.ndarray:
@@ -336,6 +363,12 @@ class System:
                 raise RuntimeError("the mapping worker failed") from self._error
         self.global_ba.wait_and_apply()
 
+    def request_reset(self):
+        """Ask for a reset from another thread (System::Reset's flag,
+        src/System.cpp:279): applied on the tracking thread at the next
+        track_* call."""
+        self._reset_pending = True
+
     def reset(self):
         """System::Reset (src/System.cpp:279; Tracking::Reset :2030): a
         running global BA is aborted, then a new map, keyframe database,
@@ -347,12 +380,41 @@ class System:
 
     # ------------------------------------------------------------- checkpoint
     def save_map(self, path):
-        raise _not_ported("map save", "the rest, map checkpoints")
+        """Checkpoint the map (MapState.save; the reference's SaveMap is a
+        TODO, include/System.h:112-114)."""
+        with self.map.lock:
+            self.map.save(path)
 
     def load_map(self, path):
-        raise _not_ported("map load", "the rest, map checkpoints")
+        """Restore a saved map of either package and relocalize against it:
+        a running global BA is aborted, the database, relocalizer, mapper,
+        loop closer, global BA and tracker are rebuilt on the loaded map
+        (keyframes already queued are mapped into the old one, as after a
+        reset), every keyframe is registered in the database, and the
+        tracker is LOST with the last keyframe as its reference, so the next
+        frame relocalizes."""
+        self.global_ba.abort_and_join()
+        self._build(MapState.load(path, self.cfg))
+        with launches_counted_as("checkpoint"):
+            for k in self.map.kf_ids:
+                self.local_mapper.register_keyframe(int(k))
+        self.tracker.state = TrackState.LOST
+        self.tracker.ref_kf = int(self.map.kf_ids[-1]) if self.map.n_keyframes else -1
 
     # -------------------------------------------------------------- trajectory
     def save_trajectory_tum(self, path):
         ts, poses = self.tracker.trajectory()
         traj_io.save_tum(path, ts, poses)
+
+    def save_keyframe_trajectory_tum(self, path):
+        """The live keyframes' poses in the TUM format, in time order
+        (System::SaveKeyFrameTrajectoryTUM, src/System.cpp:351-408)."""
+        ids = self.map.kf_ids
+        order = ids[np.argsort(self.map.kf_timestamp[ids])]
+        traj_io.save_tum(path, self.map.kf_timestamp[order], self.map.kf_pose[order])
+
+    def save_trajectory_kitti(self, path):
+        """Every tracked frame's pose in the KITTI format
+        (System::SaveTrajectoryKITTI, src/System.cpp:409-462)."""
+        _, poses = self.tracker.trajectory()
+        traj_io.save_kitti(path, poses)

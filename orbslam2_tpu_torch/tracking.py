@@ -125,7 +125,7 @@ def _ensure_patch(frame: Frame):
 
 class Tracker:
     def __init__(self, cfg: SlamConfig, mp: MapState, local_mapper=None,
-                 relocalizer=None, device: torch.device | str = "cpu"):
+                 relocalizer=None, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.map = mp
         self.device = torch.device(device)

@@ -46,7 +46,7 @@ class TestGlobalBA:
     def test_background_solve_corrects_late_keyframe(self, cfgs):
         _, mp, poses_gt, _, _ = build(cfgs)
         err_before = _pose_err(mp, poses_gt, range(1, 8))
-        gba = GlobalBA(cfgs[1], mp)
+        gba = GlobalBA(cfgs[1], mp, device="cpu")
         mid, release = threading.Event(), threading.Event()
 
         def hook(chunk):
@@ -90,7 +90,7 @@ class TestGlobalBA:
 
     def test_second_launch_aborts_first(self, cfgs):
         _, mp, _, _, _ = build(cfgs)
-        gba = GlobalBA(cfgs[1], mp)
+        gba = GlobalBA(cfgs[1], mp, device="cpu")
         started, block = threading.Event(), threading.Event()
 
         def hook(chunk):
@@ -114,7 +114,7 @@ class TestGlobalBA:
     def test_abort_discards_result(self, cfgs):
         _, mp, _, _, _ = build(cfgs)
         pose_copy = mp.kf_pose.copy()
-        gba = GlobalBA(cfgs[1], mp)
+        gba = GlobalBA(cfgs[1], mp, device="cpu")
         gba.chunk_hook = lambda chunk: gba.request_abort()
         gba.launch(fixed_kf=0)
         gba.abort_and_join()
@@ -129,7 +129,7 @@ def test_applied_result_matches_jax(cfgs):
     keyframes toward the ground truth."""
     jmp, mp, poses_gt, _, _ = build(cfgs, seed=1)
     before = _pose_err(mp, poses_gt, range(1, 8))
-    jg, tg = JGlobalBA(cfgs[0], jmp), GlobalBA(cfgs[1], mp)
+    jg, tg = JGlobalBA(cfgs[0], jmp), GlobalBA(cfgs[1], mp, device="cpu")
     for g in (jg, tg):
         g.launch(fixed_kf=0, background=False)
         assert g.poll() and g.n_applied == 1

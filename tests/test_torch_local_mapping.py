@@ -110,11 +110,11 @@ def test_hooks_not_ported_raise(tmp_path):
         def frame_bow(self, desc, valid):
             return "vec", np.arange(len(valid), dtype=np.int32)
 
-    lm = TMapper(cfg_t, mp, kf_db=DB(), bow_encode=Encoder())
+    lm = TMapper(cfg_t, mp, kf_db=DB(), bow_encode=Encoder(), device="cpu")
     lm.register_keyframe(3)
     assert calls == [(3, "vec")] and lm.counters["kfs_registered"] == 1
     np.testing.assert_array_equal(mp.kf_bow_node[3], np.arange(512))
-    TMapper(cfg_t, mp).register_keyframe(4)  # no database: nothing happens
+    TMapper(cfg_t, mp, device="cpu").register_keyframe(4)  # no database: nothing happens
     assert (mp.kf_bow_node[4] == -1).all()
 
 

@@ -230,7 +230,8 @@ def test_search_by_sim3_cases(case):
     arrays.update(next_kf_id=mp_j.next_kf_id, next_pt_id=mp_j.next_pt_id)
     mp_t = map_from_numpy(arrays, cfg_t)
     jl = JLoopCloser(cfg_j, mp_j, kf_db=None, local_mapper=None)
-    tl = LoopCloser(cfg_t, mp_t, kf_db=None, global_ba=RecordingGBA())
+    tl = LoopCloser(cfg_t, mp_t, kf_db=None, global_ba=RecordingGBA(),
+                    device="cpu")
     i1 = np.arange(n_unique)
     R = np.eye(3) if case == "expands" else np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1.0]])
     ej = jl._search_by_sim3(k1, k2, 1.0, R, np.zeros(3), i1, i1.copy())
