@@ -98,8 +98,8 @@ Phases, each printed on its own line:
    corridor_trajectory of radius 8, images with noise 2.5), the cells of
    tests/test_loop_closure_e2e.py, each lap in a process of its own
    (`--loop-lap SENSOR`): the monocular lap, the longest phase, starts
-   after phase 3 and runs beside phases 4 to 9, the RGB-D lap starts after
-   phase 7b and runs beside phase 9. Both laps go one frame
+   after phase 3 and runs beside phases 4 to 10, the RGB-D lap starts after
+   phase 7b and runs beside phases 9 and 10. Both laps go one frame
    at a time through the sensor's entry point
    (run_sequence(pipelined=False)): the block driver loses track on this
    lap in both packages (tests/torch_corridor_lap.py; PERF.md). RGB-D
@@ -143,14 +143,40 @@ Phases, each printed on its own line:
    cm from CameraTrajectory.txt (io/trajectory.load_tum), the keyframe and
    KITTI trajectory files well formed, 1 `hamming_matrix` and 1 (RGB-D) or
    2 (stereo) `hamming_best2` a tracked frame.
+10. the port's entry points and the distributed solvers (torch.distributed),
+   in this process after 9c, while the laps of phase 8 run on:
+   10a. graft_entry.entry() (tracking_step on a 480x640 frame against a
+   1024-point map, the JAX entry's seeded draws) on the card against the
+   same entry on the CPU: pose within 1e-4, inliers within 2,
+   `hamming_best2` launched under the caller "entry"; ms per call;
+   10b. `python3 -m orbslam2_tpu_torch.graft_entry --dryrun 1`, a 1-rank
+   NCCL group on cuda:0, with the gates of graft_entry.dryrun_multichip:
+   the collectives of a short sharded BA and PGO solve, by count; the
+   512-vertex pose graph within 1e-3 of the single-process solve; the
+   512/65536/1048576 crossover BA timed at 1 rank and sharded; the
+   128/8192/65536 BA at the single-process optimum (cost within 5%, more
+   than 90% inliers, inlier counts within 2%);
+   10c. the same with `--dryrun 2 --backend gloo --device cuda`, two ranks
+   sharing cuda:0 (gloo stages each collective through the host: the times
+   are correctness runs, not a scaling figure); then the global BA's
+   distributed branch at 2 gloo ranks on cuda:0 (`--gba-rank R STORE MAP`)
+   on the map that 9a saved, against the single-process GlobalBA on the
+   same map: dispatched over 2 ranks, rank 1 joined all 5 chunks, applied
+   poses within 1e-4;
+   10d. 9b's merged map: its global BA problem through dist_ba_solve over a
+   1-rank NCCL group against ba_solve(solver="cg") (2 + 3 LM iterations,
+   12 CG steps): poses within 1e-3, inliers above 70% of the valid edges,
+   after the write-back the merged keyframes' metric ATE under 9b's gate.
+   The phase lines print the collectives and the ms of each solve.
 
 The launch counts are set to 0 just before each path and read just after;
 both Hamming kernels must have been launched on the synchronous and on the
 pipelined path of every sensor, `bow_assign` by the mapper of every pipelined
 path that makes keyframes, by the relocalizer in phase 7 and by the load in
 9a, each time with the vocabulary's packed table (no call may pack it on the
-fly). Then it prints the seconds of each phase (the laps of phase 8 run
-beside phases 4 to 9 and print their own), the kernel table as one JSON
+fly), and `hamming_best2` by the entry of 10a. Then it prints the seconds
+of each phase (the laps of phase 8 run beside phases 4 to 10 and print
+their own), the kernel table as one JSON
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no "ok" line. Imports nothing
 of JAX.
@@ -1341,6 +1367,211 @@ def check_datasets(P, CK, synth, evaluation, scene, orbit, work) -> list:
     return runs
 
 
+def check_graft_entry(CK) -> dict:
+    """Phase 10a: graft_entry.entry(), the per-frame tracking_step program on
+    a 480x640 frame against a 1024-point map, on the card against the same
+    entry on the CPU: pose within 1e-4, inliers within 2; hamming_best2
+    launched under its caller "entry". Returns the launches."""
+    from orbslam2_tpu_torch import graft_entry as G
+    tag = "phase 10a"
+    fn, args = G.entry()
+    CK.reset_launch_counts()
+    with CK.launches_counted_as("entry"):
+        T_card, n_card = fn(*args)
+        torch.cuda.synchronize()
+    launches = launch_counts(CK)
+    with CK.launches_counted_as("entry"):
+        ms = T.time_ms(lambda: fn(*args), reps=5)
+    fn_cpu, args_cpu = G.entry(device="cpu")
+    T_cpu, n_cpu = fn_cpu(*args_cpu)
+    dT = float((T_card.cpu() - T_cpu).abs().max())
+    print(f"{tag}: graft_entry.entry() on the card: {int(n_card)} inliers (CPU "
+          f"{int(n_cpu)}), pose within {dT:.2e} of the CPU's; {ms:.2f} ms per call "
+          f"(CUDA events, back-to-back); kernel launches {launches}", flush=True)
+    if not (dT <= 1e-4 and abs(int(n_card) - int(n_cpu)) <= 2
+            and launches["hamming_best2"].get("entry", 0) > 0):
+        raise AssertionError(f"{tag}: pose {dT:.2e} (gate 1e-4), inliers {int(n_card)} "
+                             f"against {int(n_cpu)} (gate 2), launches {launches}")
+    return dict(launches=launches)
+
+
+def check_dryrun(tag: str, argv: list) -> dict:
+    """Phases 10b and 10c: `python3 -m orbslam2_tpu_torch.graft_entry
+    --dryrun N ...` in a subprocess, with its gates
+    (graft_entry.dryrun_multichip): its lines printed under `tag`, a
+    non-zero exit or the timeout fails the run. Returns its last line, the
+    numbers of rank 0."""
+    import subprocess
+    t0 = time.perf_counter()
+    argv = ["-m", "orbslam2_tpu_torch.graft_entry", *argv]
+    proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                          timeout=600)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        print(f"{tag}: {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: {' '.join(argv)} exited {proc.returncode}")
+    print(f"{tag}: {' '.join(argv)} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def gba_rank(rank: int, store: str, map_path: str) -> int:
+    """Phase 10c's global BA, one of 2 gloo ranks on cuda:0 (`--gba-rank R
+    STORE MAP`). Rank 0 loads the map phase 7 left into a GlobalBA forced
+    onto the distributed branch (dist_min_cams = 1), runs it on its thread
+    and stream and applies it, then the single-process GlobalBA on a fresh
+    load of the same map; rank 1 serves the chunks
+    (multihost.serve_global_ba). Rank 0's last line is JSON."""
+    import torch.distributed as dist
+    from orbslam2_tpu_torch import Sensor
+    from orbslam2_tpu_torch.global_ba import GlobalBA
+    from orbslam2_tpu_torch.io import synth
+    from orbslam2_tpu_torch.map.mapstate import MapState
+    from orbslam2_tpu_torch.parallel import multihost
+    from orbslam2_tpu_torch.utils.profile_frame import bench_config
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
+                            rank=rank)
+    try:
+        if rank == 1:
+            served = multihost.serve_global_ba(None, "cuda:0")
+            print(json.dumps({"rank": 1, "served": served}), flush=True)
+            return 0
+        cfg = bench_config(synth.make_room(seed=0), Sensor.RGBD)
+        maps, gbas, seen = [], [], []
+        for dist_min_cams in (1, 1 << 30):  # distributed, then one process
+            mp = MapState.load(map_path, cfg)
+            gba = GlobalBA(cfg, mp, device="cuda")
+            gba.dist_min_cams = dist_min_cams
+            solver_fn = gba._solver_fn
+
+            def probe(prob, solver_fn=solver_fn):
+                solve, n = solver_fn(prob)
+                seen.append(n)
+                return solve, n
+
+            gba._solver_fn = probe
+            gba.launch(fixed_kf=int(min(mp.kf_ids)))
+            if not gba.wait_and_apply(timeout=300):
+                raise AssertionError("phase 10c: a global BA was not applied")
+            maps.append(mp)
+            gbas.append(gba)
+        multihost.header(None, "cuda:0", multihost.SHUTDOWN)
+        ids = maps[0].kf_ids
+        dR = float(np.abs(maps[0].kf_pose[ids][..., :3] - maps[1].kf_pose[ids][..., :3]).max())
+        dt = float(np.abs(maps[0].kf_pose[ids][..., 3] - maps[1].kf_pose[ids][..., 3]).max())
+        print(json.dumps({"rank": 0, "dispatch": seen, "keyframes": len(ids),
+                          "solve_ms": [g.solve_ms[-1] for g in gbas],
+                          "chunk_ms": [g.chunk_ms for g in gbas],
+                          "max_dR": dR, "max_dt": dt}), flush=True)
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def check_gba_ranks(map_path, store) -> dict:
+    """Phase 10c, the global BA's distributed branch at 2 gloo ranks on the
+    card (gba_rank): dispatched over 2 ranks, the applied poses within 1e-4
+    of the single-process GlobalBA's on the same map."""
+    import subprocess
+    import tempfile
+    tag = "phase 10c gba"
+    t0 = time.perf_counter()
+    procs = []
+    for rank in (0, 1):
+        out = tempfile.TemporaryFile(mode="w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, "--gba-rank", str(rank), str(store), str(map_path)],
+            stdout=out, stderr=subprocess.STDOUT, text=True), out))
+    last = {}
+    try:
+        for rank, (proc, out) in enumerate(procs):
+            proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+            out.seek(0)
+            lines = out.read().splitlines()
+            for line in lines:
+                print(f"{tag} rank {rank}: {line}", flush=True)
+            if proc.returncode != 0:
+                raise AssertionError(f"{tag}: rank {rank} exited {proc.returncode}")
+            last[rank] = json.loads(lines[-1])
+    finally:
+        for proc, out in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            out.close()
+    r = last[0]
+    print(f"{tag}: 2 ranks sharing cuda:0 over gloo, dispatch {r['dispatch']} (rank "
+          f"count of the distributed and of the single-process GBA), rank 1 served "
+          f"{last[1]['served']} chunks; solve ms {r['solve_ms']} (distributed, one "
+          f"process), chunk ms {r['chunk_ms']}; applied poses of {r['keyframes']} "
+          f"keyframes within {r['max_dR']:.2e} (rotation) and {r['max_dt']:.2e} m of "
+          f"the single-process GBA's; {time.perf_counter() - t0:.1f} s", flush=True)
+    if not (r["dispatch"] == [2, 1] and last[1]["served"] == [5]
+            and r["max_dR"] <= 1e-4 and r["max_dt"] <= 1e-4):
+        raise AssertionError(f"{tag}: dispatch {r['dispatch']}, served "
+                             f"{last[1]['served']}, poses {r['max_dR']:.2e} / "
+                             f"{r['max_dt']:.2e} (gate 1e-4)")
+    return r
+
+
+def check_merged_dist_ba(P, evaluation, sys_a, gt, work) -> dict:
+    """Phase 10d, the card's counterpart of tests/test_merged_map_dist_ba.py:
+    the map 9b merged, its global BA problem through dist_ba_solve over a
+    1-rank NCCL group against ba_solve(solver="cg"), both 2 + 3 LM
+    iterations of 12 CG steps. Gates: poses within 1e-3, inliers above 70%
+    of the valid edges, and after writing the distributed result back the
+    merged keyframes' metric ATE under 9b's gate."""
+    import torch.distributed as dist
+    from orbslam2_tpu_torch.local_mapping import build_ba_problem
+    from orbslam2_tpu_torch.ops import ba as BA
+    from orbslam2_tpu_torch.ops import features as FT
+    from orbslam2_tpu_torch.parallel import dist_ba
+    tag = "phase 10d"
+    mp, cfg = sys_a.map, sys_a.cfg
+    cam = cfg.camera
+    intr = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+    kw = dict(iters1=2, iters2=3, cg_iters=12)
+    kfs = [int(k) for k in mp.kf_ids]
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl_store",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        prob, meta = build_ba_problem(mp, cfg, FT.sigma2_per_octave(cfg.orb), kfs,
+                                      fixed=[kfs[0]], device=torch.device("cuda"))
+        colls = dist_ba.collectives(prob, None, *intr)
+        ms = {}
+        t0 = time.perf_counter()
+        res = dist_ba.dist_ba_solve(prob, None, *intr, **kw)
+        torch.cuda.synchronize()
+        ms["1 NCCL rank"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = BA.ba_solve(prob, *intr, solver="cg", **kw)
+        torch.cuda.synchronize()
+        ms["ba_solve"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.destroy_process_group()
+    dT = float((res.cam_T - ref.cam_T).abs().max())
+    n_valid = int(prob.e_valid.sum())
+    inl = int((res.e_inlier & prob.e_valid).sum())
+    cam_T = res.cam_T.cpu().numpy()
+    for i, k in enumerate(meta["cam_arr"]):
+        if int(k) != kfs[0]:
+            mp.kf_pose[int(k)] = cam_T[i]
+    ids = mp.kf_ids
+    fids = np.round(mp.kf_timestamp[ids] * 30).astype(int)
+    ate = evaluation.ate_rmse(evaluation.camera_centers(mp.kf_pose[ids]),
+                              evaluation.camera_centers(gt[fids]), with_scale=False)
+    print(f"{tag}: the merged map's BA (C={prob.cam_T.shape[0]} P={prob.pts.shape[0]} "
+          f"E={prob.e_cam.shape[0]}, {len(kfs)} keyframes) over 1 NCCL rank, collectives "
+          f"{colls}: poses within {dT:.2e} of ba_solve(solver='cg'), inliers {inl}/"
+          f"{n_valid} valid, cost {float(res.cost):.6g} (ba_solve {float(ref.cost):.6g});"
+          f" ms {ms}; merged keyframes' metric ATE after the write-back {100 * ate:.3f} "
+          f"cm (gate {100 * MERGE_ATE_GATE:.3f})", flush=True)
+    if not (dT < 1e-3 and inl > 0.7 * n_valid and ate <= MERGE_ATE_GATE):
+        raise AssertionError(f"{tag}: poses {dT:.2e} (gate 1e-3), inliers {inl}/{n_valid} "
+                             f"(gate 70%), ATE {100 * ate:.3f} cm")
+    return dict(ms=ms, colls=colls)
+
+
 def _add_launches(*runs: dict) -> dict:
     """The launches of several runs, summed by kernel and caller."""
     total: dict = {}
@@ -1397,6 +1628,8 @@ def main() -> int:
         return kernel_checks()
     if sys.argv[1:2] == ["--loop-lap"] and sys.argv[2:] in (["rgbd"], ["mono"]):
         return loop_lap(sys.argv[2])
+    if sys.argv[1:2] == ["--gba-rank"] and len(sys.argv) == 5:
+        return gba_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
@@ -1470,7 +1703,7 @@ def main() -> int:
     lap_seconds("3")
 
     # phase 8's monocular lap, the longest phase, in a process of its own
-    # beside phases 4 to 9; the RGB-D lap joins it after phase 7
+    # beside phases 4 to 10; the RGB-D lap joins it after phase 7
     import subprocess
     import tempfile
     laps = {}
@@ -1548,7 +1781,7 @@ def main() -> int:
     check_reloc_rescue(P, CK)
     lap_seconds("7")
 
-    # phase 9 in this process, beside both laps of phase 8
+    # phases 9 and 10 in this process, beside both laps of phase 8
     from pathlib import Path
     try:
         start_lap("rgbd")
@@ -1560,6 +1793,19 @@ def main() -> int:
             lap_seconds("9b")
             p9 += check_datasets(P, CK, synth, evaluation, scene, orbit, work)
             lap_seconds("9c")
+            # phase 10: the entry points and the distributed solvers, in the
+            # time this process would wait for the laps
+            p9.append(check_graft_entry(CK))
+            lap_seconds("10a")
+            p10 = {"dryrun 1": check_dryrun("phase 10b", ["--dryrun", "1"])}
+            lap_seconds("10b")
+            p10["dryrun 2"] = check_dryrun("phase 10c", ["--dryrun", "2", "--backend",
+                                                         "gloo", "--device", "cuda"])
+            p10["gba"] = check_gba_ranks(work / "sweep120.npz", work / "gba_store")
+            lap_seconds("10c")
+            p10["merged"] = check_merged_dist_ba(P, evaluation, sync[1]["system"], sweep,
+                                                 work)
+            lap_seconds("10d")
         loops = [finish_lap(*laps[sensor]) for sensor in ("mono", "rgbd")]
     finally:
         for proc, out, _ in laps.values():
@@ -1584,7 +1830,8 @@ def main() -> int:
     launches_by = {kernel: total(main_path, kernel) for kernel in KERNELS}
     print(f"phase 9: kernel launches on the pipelined paths of all sensors, the "
           f"relocalization paths after them, the corridor laps, the checkpoint, the "
-          f"merge and the dataset runs: {launches_by}; synchronous paths: "
+          f"merge, the dataset runs and the entry of 10a: {launches_by}; synchronous "
+          f"paths: "
           f"{({k: total(others, k) for k in KERNELS})}", flush=True)
     print(f"seconds per phase: {json.dumps(phase_seconds)}; "
           f"{time.perf_counter() - t_start:.1f} s since the start", flush=True)

@@ -29,9 +29,13 @@ at launch), waits for its own stream after every chunk, and publishes the
 result only as host arrays read back after that wait. The snapshot's
 tensors stay referenced by the worker until the solve has ended.
 
-Only the single-device solve is ported: the JAX package's distributed
-branch (`_solver_fn`, orbslam2_tpu/global_ba.py:92-113) waits for
-ROADMAP.md queue 1, item 15d.
+When torch.distributed is initialized over more than one rank and the
+snapshot has at least `dist_min_cams` (bucketed) cameras, the chunks run
+sharded over the default group (`_solver_fn`, the JAX package's
+distributed branch): this GBA, on rank 0, broadcasts the snapshot's
+problem and a header before each chunk (parallel/multihost.py), and every
+other rank joins the chunks in `multihost.serve_global_ba`. An abort
+between chunks ends the solve on every rank.
 """
 from __future__ import annotations
 
@@ -40,11 +44,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import SlamConfig
 from .map.mapstate import MapState
 from .ops import ba as BA
 from .ops import features as F
+from .parallel import dist_ba, multihost
 from .utils.metrics import log_event
 
 
@@ -70,6 +76,11 @@ class GlobalBA:
         # test hook: called between chunks (may block to make timing
         # deterministic in tests)
         self.chunk_hook = None
+
+    # distributed dispatch threshold: below this (bucketed) camera count the
+    # sharded CG cannot amortize its collectives; tests lower it to force
+    # the distributed path
+    dist_min_cams = 64
 
     # ------------------------------------------------------------------ launch
     def launch(self, fixed_kf: int, chunks: int = 5, chunk_iters=(1, 2),
@@ -108,30 +119,59 @@ class GlobalBA:
         else:
             self._solve(prob, chunks, chunk_iters, uploaded)
 
+    def _solver_fn(self, prob: BA.BAProblem):
+        """Pick the solve: sharded by point owner over the default group when
+        it has more than one rank and the problem has at least
+        `dist_min_cams` cameras (the peers are then sent the problem), the
+        single-process solve otherwise. Returns (solve(prob, i1, i2), the
+        number of ranks)."""
+        cam = self.cfg.camera
+        intr = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        if n > 1 and prob.cam_T.shape[0] >= self.dist_min_cams:
+            group = dist.group.WORLD
+            multihost.header(group, self.device, multihost.SOLVE, intrinsics=intr)
+            multihost.broadcast_problem(prob, group)
+
+            def solve(prob, i1, i2):
+                multihost.header(group, self.device, multihost.CHUNK, iters=(i1, i2))
+                return dist_ba.dist_ba_solve(prob, group, *intr, iters1=i1, iters2=i2)
+            return solve, n
+
+        def solve(prob, i1, i2):
+            return BA.ba_solve(prob, *intr, iters1=i1, iters2=i2)
+        return solve, 1
+
     def _solve(self, prob: BA.BAProblem, chunks: int, chunk_iters, uploaded):
         stream = None
         if uploaded is not None:
             stream = torch.cuda.Stream(device=self.device)
             stream.wait_event(uploaded)
-        cam = self.cfg.camera
         t0 = time.perf_counter()
         chunk_ms = []
         res = None
         with torch.cuda.stream(stream):  # no-op without a stream (the CPU)
-            for c in range(chunks):
-                tc = time.perf_counter()
-                res = BA.ba_solve(prob, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
-                                  iters1=chunk_iters[0], iters2=chunk_iters[1])
-                if stream is not None:
-                    stream.synchronize()
-                chunk_ms.append((time.perf_counter() - tc) * 1e3)
-                if self.chunk_hook is not None:
-                    self.chunk_hook(c)
-                if self._abort.is_set():
-                    self.n_aborted += 1
-                    log_event("gba_aborted", chunk=c)
-                    return
-                prob = prob._replace(cam_T=res.cam_T, pts=res.pts)
+            solve, n_dev = self._solver_fn(prob)
+            if n_dev > 1:
+                log_event("gba_distributed", devices=n_dev,
+                          cams=int(prob.cam_T.shape[0]))
+            try:
+                for c in range(chunks):
+                    tc = time.perf_counter()
+                    res = solve(prob, chunk_iters[0], chunk_iters[1])
+                    if stream is not None:
+                        stream.synchronize()
+                    chunk_ms.append((time.perf_counter() - tc) * 1e3)
+                    if self.chunk_hook is not None:
+                        self.chunk_hook(c)
+                    if self._abort.is_set():
+                        self.n_aborted += 1
+                        log_event("gba_aborted", chunk=c)
+                        return
+                    prob = prob._replace(cam_T=res.cam_T, pts=res.pts)
+            finally:
+                if n_dev > 1:  # the peers leave the solve, ended or aborted
+                    multihost.header(dist.group.WORLD, self.device, multihost.END)
             # host copies, read back on this stream after its last chunk
             result = (res.cam_T.cpu().numpy(), res.pts.cpu().numpy())
         with self._lock:

@@ -19,6 +19,13 @@ replaces g2o's sparse BlockSolver_6_3 + OptimizationAlgorithmLevenberg:
 
 Nothing is read back from the device inside a solve: the LM and CG
 iterations are Python loops of device ops.
+
+`group` shards the solve by point owner (parallel/dist_ba.py): each rank
+holds its points and every edge of them, the cameras are replicated. The
+camera-indexed sums (Hcc, the Schur rhs, the CG matvec) and the costs then
+go through one all_reduce each (parallel/collectives.py); the point blocks
+stay local; the LM accept/reject and the CG scalars are computed from
+replicated values, so every rank takes the same branch.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from ..parallel import collectives as COL
 from ..utils.device import upload
 from . import ba_core as BC
 
@@ -116,7 +124,7 @@ def _dense_schur_step(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam):
 
 
 def _lm_iteration(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
-                  robust, cg_iters: int, dense_schur: bool = False):
+                  robust, cg_iters: int, dense_schur: bool = False, group=None):
     C = cam_T.shape[0]
     P = pts.shape[0]
     res, Jp, Jpt, m, cost, _, _ = _edge_terms(
@@ -136,24 +144,26 @@ def _lm_iteration(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
     # LM damping (multiplicative on block diagonals)
     eye6 = torch.eye(6, device=cam_T.device)
     eye3 = torch.eye(3, device=cam_T.device)
-    Hcc_d = Hcc + lam * Hcc * eye6 + 1e-8 * eye6
     Hpp_d = Hpp + lam * Hpp * eye3 + 1e-8 * eye3
     Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]   # [P, 3, 3] point marginalization
 
     # Schur RHS: bc - W Hpp^-1 bp
     hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
     rhs = bc - _seg_sum(torch.einsum("eij,ej->ei", W, hb[p.e_pt]), p.e_cam, C)
+    Hcc, rhs, cost = COL.all_reduce([Hcc, rhs, cost], group)
+    Hcc_d = Hcc + lam * Hcc * eye6 + 1e-8 * eye6
     rhs = rhs * free_cam
 
     if dense_schur:
         dx_c = _dense_schur_step(p, Hcc_d, Hpp_inv, W, rhs, free_cam)
     else:
-        dx_c = _pcg(p, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters)
+        dx_c = _pcg(p, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters, group)
     return _apply_step(p, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
-                       robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam)
+                       robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam, group)
 
 
-def _pcg(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int):
+def _pcg(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
+         group=None):
     """Block-Jacobi preconditioned CG on the reduced camera system, matrix
     free: S @ x costs two edge gathers and two segment sums."""
     C = Hcc_d.shape[0]
@@ -164,7 +174,8 @@ def _pcg(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int):
         u = torch.einsum("eij,ei->ej", W, x[p.e_cam])          # [E, 3] = W^T x
         wp = torch.einsum("pij,pj->pi", Hpp_inv, _seg_sum(u, p.e_pt, P))
         ze = torch.einsum("eij,ej->ei", W, wp[p.e_pt])         # [E, 6]
-        y = torch.einsum("cij,cj->ci", Hcc_d, x) - _seg_sum(ze, p.e_cam, C)
+        y = (torch.einsum("cij,cj->ci", Hcc_d, x)
+             - COL.all_reduce([_seg_sum(ze, p.e_cam, C)], group)[0])
         return y * free_cam
 
     eye6 = torch.eye(6, device=Hcc_d.device)
@@ -197,7 +208,7 @@ def _pcg(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int):
 
 
 def _apply_step(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
-                robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam):
+                robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam, group=None):
     """Point back-substitution + LM accept/reject for a camera step dx_c."""
     P = pts.shape[0]
     dx_c = torch.where(torch.isfinite(dx_c), dx_c, 0.0)
@@ -210,8 +221,8 @@ def _apply_step(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
 
     cam_T_new = se3.retract(cam_T, dx_c * free_cam)
     pts_new = pts + dx_p
-    cost_new = _edge_terms(p, cam_T_new, pts_new, e_active, fx, fy, cx, cy,
-                           bf, robust)[4]
+    cost_new = COL.all_reduce([_edge_terms(p, cam_T_new, pts_new, e_active, fx,
+                                           fy, cx, cy, bf, robust)[4]], group)[0]
 
     accept = cost_new < cost
     cam_T = torch.where(accept, cam_T_new, cam_T)
@@ -243,25 +254,32 @@ def _use_dense_schur(C: int, P: int, solver: str) -> bool:
 
 def ba_solve(p: BAProblem, fx: float, fy: float, cx: float, cy: float,
              bf: float, iters1: int = 5, iters2: int = 10,
-             cg_iters: int = 24, solver: str = "auto") -> BAResult:
+             cg_iters: int = 24, solver: str = "auto", group=None) -> BAResult:
     """Two-phase LM Schur BA (reference schedule: 5 iterations, outlier
     cut, 10 iterations, src/Optimizer.cpp:790-841). Huber in phase 1,
     plain in phase 2 (outliers excluded instead).
 
     solver: "dense" forms the reduced camera system and solves it by
     Cholesky, "cg" is the matrix-free preconditioned CG, "auto" takes dense
-    when the [P, C] coupling fits."""
+    when the [P, C] coupling fits.
+
+    group: None for the whole problem in this process; a process group (or
+    collectives.Counting) for this rank's shard of a problem sharded by
+    point owner (parallel/dist_ba.shard_problem), which needs "cg"."""
     cam_T, pts = p.cam_T, p.pts
     lam = torch.full((), 1e-4, dtype=torch.float32, device=cam_T.device)
     cost = torch.full((), float("inf"), dtype=torch.float32, device=cam_T.device)
     dense = _use_dense_schur(cam_T.shape[0], pts.shape[0], solver)
+    if dense and group is not None:
+        raise ValueError("a sharded solve runs solver='cg': the dense Schur step "
+                         "forms the reduced system from every point")
 
     e_active = p.e_valid
     for n, robust in ((iters1, True), (iters2, False)):
         for _ in range(n):
             cam_T, pts, lam, cost = _lm_iteration(
                 p, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf, robust,
-                cg_iters, dense_schur=dense)
+                cg_iters, dense_schur=dense, group=group)
         e_active = _classify(p, cam_T, pts, fx, fy, cx, cy, bf)
     return BAResult(cam_T=cam_T, pts=pts, e_inlier=e_active, cost=cost)
 
@@ -271,7 +289,9 @@ def synthetic_problem(C: int, P: int, E: int, seed: int = 0,
     """A seeded BA problem as numpy arrays: C cameras on a forward
     trajectory (the first fixed) observing P points through E edges, mono
     and stereo mixed, 0.5 px observation noise, poses and points perturbed.
-    Returns (arrays named as BAProblem's fields, (fx, fy, cx, cy, bf))."""
+    Returns (arrays named as BAProblem's fields, (fx, fy, cx, cy, bf)):
+    the same draws and roundings as the JAX package's
+    __graft_entry__._make_ba_problem, array for array."""
     rng = np.random.default_rng(seed)
     fx = fy = 718.0
     cx, cy = 607.0, 185.0
@@ -300,14 +320,14 @@ def synthetic_problem(C: int, P: int, E: int, seed: int = 0,
     z = np.maximum(pc[:, 2], 1.0)
     obs = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy,
                     fx * pc[:, 0] / z + cx - bf / z], -1).astype(np.float32)
-    obs[:, :2] += rng.normal(0, 0.5, (E, 2)).astype(np.float32)
+    obs[:, :2] += rng.normal(0, 0.5, (E, 2))
     stereo = rng.random(E) < stereo_frac
     shift = np.concatenate([np.zeros((C, 3, 3)), rng.normal(0, 0.02, (C, 3, 1))], -1)
     arrays = dict(
         cam_T=(cams + shift.astype(np.float32) * (np.arange(C) > 0)[:, None, None]
                ).astype(np.float32),
         cam_fixed=np.arange(C) < 1, cam_valid=np.ones(C, bool),
-        pts=(pts + rng.normal(0, 0.05, (P, 3))).astype(np.float32),
+        pts=pts + rng.normal(0, 0.05, (P, 3)).astype(np.float32),
         pt_valid=np.ones(P, bool),
         e_cam=e_cam.astype(np.int32), e_pt=e_pt.astype(np.int32), e_obs=obs,
         e_stereo=stereo & ok, e_info=np.ones(E, np.float32), e_valid=ok)

@@ -20,12 +20,17 @@ The Gauss-Newton and CG loops are Python loops with no readback: their
 guards (den > 1e-12, rz > 1e-20) are torch.where selects. f32 central
 differences of sim3.log at eps = 1e-4 are noisy, so the port is held to
 JAX by final poses and cost, not by Jacobians.
+
+`group` shards the edges (parallel/dist_pgo.py) with the vertices
+replicated: the vertex-indexed sums (the block diagonal and b with the cost,
+the CG matvec) go through one all_reduce each (parallel/collectives.py).
 """
 from __future__ import annotations
 
 import torch
 
 from ..geometry import sim3
+from ..parallel import collectives as COL
 
 _EPS = 1e-4
 
@@ -40,11 +45,13 @@ def _seg(x, idx, K):
 
 
 def optimize_pose_graph(svals, R, t, fixed, e_i, e_j, meas_s, meas_R, meas_t,
-                        e_valid, iters: int = 20, cg_iters: int = 32):
+                        e_valid, iters: int = 20, cg_iters: int = 32, group=None):
     """svals/R/t: [K], [K,3,3], [K,3] Sim3 vertices (world->kf); fixed [K]
     bool. e_i/e_j: [E] vertex indices; meas_*: the measured relative Sim3
     S_meas = S_i ∘ S_j^-1 at edge creation; e_valid [E] bool. Returns the
-    updated (svals, R, t) and the cost before each iteration [iters]."""
+    updated (svals, R, t) and the cost before each iteration [iters].
+    group: None, or a process group over which the edges are split
+    (dist_pgo.shard_pgo) and the vertices replicated."""
     K = svals.shape[0]
     dev, dt = svals.device, svals.dtype
     e_i, e_j = e_i.long(), e_j.long()
@@ -55,6 +62,7 @@ def optimize_pose_graph(svals, R, t, fixed, e_i, e_j, meas_s, meas_R, meas_t,
     # the 14 perturbations D_k = exp(+-eps e_k), [14] Sims
     D = sim3.exp(torch.cat([_EPS * eye7, -_EPS * eye7]))
     D = {k: v[:, None] for k, v in D.items()}               # broadcast over E
+    lead = COL.lead(group)
 
     def residuals(Si, Sj):
         return sim3.log(sim3.compose(meas_inv, sim3.compose(Si, sim3.inverse(Sj))))
@@ -70,19 +78,23 @@ def optimize_pose_graph(svals, R, t, fixed, e_i, e_j, meas_s, meas_R, meas_t,
         Ji = jac(residuals(sim3.compose(D, Si), Sj))
         Jj = jac(residuals(Si, sim3.compose(D, Sj)))
 
-        Hdiag = (_seg(torch.einsum("eri,e,erj->eij", Ji, wE, Ji), e_i, K)
-                 + _seg(torch.einsum("eri,e,erj->eij", Jj, wE, Jj), e_j, K)
-                 + 1e-6 * eye7)
+        Hd = (_seg(torch.einsum("eri,e,erj->eij", Ji, wE, Ji), e_i, K)
+              + _seg(torch.einsum("eri,e,erj->eij", Jj, wE, Jj), e_j, K))
         b = (_seg(-torch.einsum("eri,e,er->ei", Ji, wE, r0), e_i, K)
-             + _seg(-torch.einsum("eri,e,er->ei", Jj, wE, r0), e_j, K)) * free
+             + _seg(-torch.einsum("eri,e,er->ei", Jj, wE, r0), e_j, K))
+        Hd, b, cost = COL.all_reduce([Hd, b, torch.sum(r0 * r0 * wE[:, None])], group)
+        Hdiag = Hd + 1e-6 * eye7
+        b = b * free
         Hij = torch.einsum("eri,e,erj->eij", Ji, wE, Jj)        # per-edge coupling
 
         def matvec(x):
             x = x * free
-            y = torch.einsum("kij,kj->ki", Hdiag, x)
+            # the replicated block-diagonal term enters the sum once
+            y = (torch.einsum("kij,kj->ki", Hdiag, x) if lead
+                 else torch.zeros_like(x))
             y = y + _seg(torch.einsum("eij,ej->ei", Hij, x[e_j]), e_i, K)
             y = y + _seg(torch.einsum("eij,ei->ej", Hij, x[e_i]), e_j, K)
-            return y * free
+            return COL.all_reduce([y], group)[0] * free
 
         Minv = torch.linalg.inv_ex(Hdiag)[0]
 
@@ -107,5 +119,5 @@ def optimize_pose_graph(svals, R, t, fixed, e_i, e_j, meas_s, meas_R, meas_t,
         dx = torch.where(torch.isfinite(x), x, 0.0) * free
         S = sim3.compose(sim3.exp(dx), {"s": svals, "R": R, "t": t})
         svals, R, t = S["s"], S["R"], S["t"]
-        costs.append(torch.sum(r0 * r0 * wE[:, None]))
+        costs.append(cost)
     return svals, R, t, torch.stack(costs)
