@@ -6,14 +6,14 @@ NVIDIA Hopper in two forms (csrc/hamming.cu, csrc/hamming_best2.cu) and the
 vocabulary descent as a third hand-written kernel (csrc/bow_assign.cu). It
 never imports jax or orbslam2_tpu.
 
-So far the port covers monocular, stereo and RGB-D tracking with local
-mapping, place recognition, relocalization, localization mode, loop closing
-and the background global BA:
-System(cfg, device="cuda").track_monocular(...) / track_stereo(...) /
-track_rgbd(...), or pipelined with the mapper on its own thread,
-System(cfg, device="cuda", async_mapping=True).run_sequence(frames,
-pipelined=True). See ROADMAP.md for the rest (map files, map merge, the
-dataset drivers).
+The port covers monocular, stereo and RGB-D tracking with local mapping,
+place recognition, relocalization, localization mode, loop closing and the
+background global BA: System(cfg, device="cuda").track_monocular(...) /
+track_stereo(...) / track_rgbd(...), or pipelined with the mapper on its
+own thread, System(cfg, device="cuda", async_mapping=True)
+.run_sequence(frames, pipelined=True); map files, map merge, the dataset
+drivers, the distributed solvers, the live viewer (use_viewer=True) and the
+endurance run (python3 -m orbslam2_tpu_torch.endurance_run).
 """
 import torch as _torch
 

@@ -1,4 +1,4 @@
-"""PNG decoding without OpenCV: stdlib zlib plus numpy.
+"""PNG decoding and encoding without OpenCV: stdlib zlib plus numpy.
 
 The dataset readers of the JAX package decode images with cv2.imread; the
 port runs where OpenCV is not installed, so it decodes the PNGs of the TUM,
@@ -16,6 +16,10 @@ Read: colour types gray, RGB, gray-alpha and RGBA at 8 bits, gray at 16
 bits, all five scanline filters, no interlace. Anything else (palette
 images, 16-bit colour, Adam7, a bad CRC) raises ValueError. Ancillary chunks
 are skipped; no gamma is applied.
+
+write_png(dest, img) encodes u8 gray [H,W], u8 RGB [H,W,3] or u16 gray
+[H,W] (every scanline unfiltered) to a path or a binary file-like object:
+the dataset directories of chip_smoke.py and the live viewer's renders.
 """
 from __future__ import annotations
 
@@ -148,3 +152,31 @@ def read_png(path, unchanged: bool = False) -> np.ndarray:
     gray = (rc * rgb[..., 0] + gc * rgb[..., 1] + bc * rgb[..., 2]) >> 15
     same = (rgb[..., 0] == rgb[..., 1]) & (rgb[..., 0] == rgb[..., 2])
     return np.where(same, rgb[..., 0], gray).astype(np.uint8)
+
+
+def write_png(dest, img: np.ndarray) -> None:
+    """Encode a u8 gray or RGB image or a u16 gray one as a PNG into `dest`,
+    a path or a binary file-like object (module docstring)."""
+    img = np.asarray(img)
+    if not ((img.dtype == np.uint8 and (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)))
+            or (img.dtype == np.uint16 and img.ndim == 2)):
+        raise ValueError(f"write_png: {img.dtype} image of shape {img.shape} is not "
+                         "u8 gray, u8 RGB or u16 gray")
+    h, w = img.shape[:2]
+    colour = 0 if img.ndim == 2 else 2
+    depth = 16 if img.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img)
+    rows = rows.view(np.uint8).reshape(h, -1)
+    raw = np.hstack([np.zeros((h, 1), np.uint8), rows]).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    data = (_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+    if hasattr(dest, "write"):
+        dest.write(data)
+    else:
+        Path(dest).write_bytes(data)

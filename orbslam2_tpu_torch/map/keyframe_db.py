@@ -69,7 +69,19 @@ class KeyFrameDatabase:
         self.registered = np.zeros(K, bool)
         self._scratch = np.zeros(n_words, np.float32)  # query densify buffer
 
+    def _fit(self):
+        """Grow the rows to the map's keyframe capacity: MapState.alloc_kf
+        doubles its keyframe arrays once cfg.max_keyframes ids are taken, and
+        ids stay stable (ROADMAP F5: the JAX package's database keeps its
+        first size and raises past it)."""
+        pad = self.map.kf_valid.shape[0] - self.registered.shape[0]
+        if pad > 0:
+            self.word_ids = np.pad(self.word_ids, ((0, pad), (0, 0)), constant_values=-1)
+            self.weights = np.pad(self.weights, ((0, pad), (0, 0)))
+            self.registered = np.pad(self.registered, (0, pad))
+
     def add(self, kf: int, vec):
+        self._fit()
         words, weights = to_sparse_bow(vec)
         W = self.word_ids.shape[1]
         if len(words) > W:  # keep the highest-weight words
@@ -89,6 +101,7 @@ class KeyFrameDatabase:
         self.weights[kf] = 0.0
 
     def _active(self):
+        self._fit()
         return self.registered & self.map.kf_valid
 
     def _common_and_scores(self, words: np.ndarray, weights: np.ndarray):

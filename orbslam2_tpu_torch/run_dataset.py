@@ -9,8 +9,9 @@
 
 Options: --out-dir DIR (trajectory outputs), --max-frames N, --device
 cuda|cpu (default cuda: without a card the command fails unless the CPU is
-asked for). --viewer (the reference's Pangolin window) is not ported yet
-(ROADMAP.md queue 1, item 15e). Counterpart of orbslam2_tpu/run_dataset.py.
+asked for), --viewer (the live HTTP map and frame viewer, the reference's
+Pangolin window; it prints its address). Counterpart of
+orbslam2_tpu/run_dataset.py.
 Tracks through System.run_sequence (the block driver), prints the
 median/mean tracking time at the end (the reference drivers'
 instrumentation, Examples/Monocular/mono_tum.cc:112-120) and saves
@@ -38,16 +39,15 @@ def main(argv=None) -> int:
     device = "cuda"
     out_dir = Path(".")
     max_frames = None
+    use_viewer = "--viewer" in argv
+    if use_viewer:
+        argv.remove("--viewer")
     if "--device" in argv:
         i = argv.index("--device"); device = argv[i + 1]; del argv[i:i + 2]
     if "--out-dir" in argv:
         i = argv.index("--out-dir"); out_dir = Path(argv[i + 1]); del argv[i:i + 2]
     if "--max-frames" in argv:
         i = argv.index("--max-frames"); max_frames = int(argv[i + 1]); del argv[i:i + 2]
-    if "--viewer" in argv:
-        print("--viewer: the live viewer is not ported yet (ROADMAP.md queue 1: "
-              "15e, viz/)", file=sys.stderr)
-        return 2
     if len(argv) < 3 or argv[0] not in MODES or device not in ("cuda", "cpu"):
         print(__doc__)
         return 2
@@ -83,7 +83,7 @@ def main(argv=None) -> int:
             print("warning: no LEFT./RIGHT. rectification blocks in "
                   f"{settings}; feeding raw images", file=sys.stderr)
 
-    slam = System(cfg, device=device)
+    slam = System(cfg, device=device, use_viewer=use_viewer)
     it = {"tum_mono": lambda: D.iter_tum_mono(seq),
           # raw sensor units: the tracker applies cfg.depth_map_factor once
           "tum_rgbd": lambda: D.iter_tum_rgbd(seq, assoc, depth_factor=1.0),

@@ -1,13 +1,13 @@
 """End-to-end demo: run the full SLAM pipeline on a synthetic sequence.
 
-Usage: python -m orbslam2_tpu_torch.run_synth [n_frames] [--device cuda|cpu]
+Usage: python -m orbslam2_tpu_torch.run_synth [n_frames] [--device cuda|cpu] [--viewer]
 
 Renders the textured room with exact ground truth, tracks an orbit through
 it monocularly, and reports per-frame state plus the final ATE RMSE
 (Sim3-aligned, the TUM-benchmark metric the reference is evaluated with).
 Runs on the card (the default); without one it fails unless the CPU is
-asked for. --viewer is not ported yet (ROADMAP.md queue 1, item 15e).
-Counterpart of orbslam2_tpu/run_synth.py.
+asked for. --viewer starts the live HTTP map and frame viewer and prints
+its address. Counterpart of orbslam2_tpu/run_synth.py.
 """
 from __future__ import annotations
 
@@ -18,14 +18,13 @@ import time
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
+    use_viewer = "--viewer" in argv
+    if use_viewer:
+        argv.remove("--viewer")
     if "--device" in argv:
         i = argv.index("--device")
         device = argv[i + 1]
         del argv[i:i + 2]
-    if "--viewer" in argv:
-        print("--viewer: the live viewer is not ported yet (ROADMAP.md queue 1: "
-              "15e, viz/)", file=sys.stderr)
-        return 2
     if device not in ("cuda", "cpu"):
         print(__doc__)
         return 2
@@ -51,7 +50,7 @@ def main(argv=None) -> int:
         k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
         width=scene.width, height=scene.height)
 
-    slam = System(cfg, device=device)
+    slam = System(cfg, device=device, use_viewer=use_viewer)
     times = []
     for i in range(n_frames):
         img = synth.render_room(scene, gt[i], seed=i)
@@ -65,7 +64,7 @@ def main(argv=None) -> int:
               f"{'pose ok' if pose is not None else 'no pose'}  "
               f"{times[-1] * 1e3:6.1f} ms", flush=True)
 
-    slam.shutdown()  # waits for a running global BA and applies it
+    slam.shutdown()  # stops the viewer, waits for a running global BA and applies it
     ts, est = slam.tracker.trajectory()
     if len(est) < 10:
         print("\nTRACKING FAILED: fewer than 10 frames tracked")

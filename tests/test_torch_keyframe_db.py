@@ -162,3 +162,24 @@ def test_same_candidates_as_jax_on_seeded_data(seed):
     tdb2 = interop.keyframe_db_from_numpy(jdb, tcfg, tm, 2000)
     np.testing.assert_array_equal(tdb2.detect_reloc_candidates(vecs[9]),
                                   jdb.detect_reloc_candidates(vecs[9]))
+
+
+def test_database_grows_with_the_map():
+    """Past cfg.max_keyframes the map doubles its keyframe arrays and the
+    port's database grows its rows with it, so registration and both
+    queries go on (ROADMAP F5; the JAX package's database keeps its first
+    size and raises on the first keyframe past it)."""
+    K = 16
+    for port in (True, False):
+        cfg, mp, db = world(100, port)
+        assert cfg.max_keyframes == K
+        try:
+            for i in range(K + 5):
+                db.add(add_kf(mp, i, port), dense([i % 50, 50 + i % 7]))
+        except IndexError:
+            assert not port and i == K  # JAX: the first id past capacity
+            continue
+        assert port and mp.kf_valid.shape[0] == 2 * K and db.registered.shape[0] == 2 * K
+        assert db.registered[:K + 5].all() and not db.registered[K + 5:].any()
+        assert int(db.detect_reloc_candidates(dense([K + 2, 50 + (K + 2) % 7]))[0]) == K + 2
+        assert len(db.detect_loop_candidates(K + 4, min_score=0.0)) > 0
