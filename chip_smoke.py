@@ -22,8 +22,11 @@ Phases, each printed on its own line:
    and the monocular path give it: [1024,1024] under a stereo row-band mask
    and [2048,2048] under the +-100 px window mask of monocular
    initialization, and [1024,1024] and [2048,1024] under the same-node
-   mask of `match_by_bow` on the default vocabulary. Times both with CUDA
-   events: per call
+   mask of `match_by_bow` on the default vocabulary; and (checked only) all
+   true at the vocabulary trainer's shapes [4096,1], [4096,10], [4096,11]
+   and [100000,10]. Times `hamming_matrix` at its shapes and
+   `hamming_best2` on the 1% mask and the path masks (the other masks give
+   the same times, PERF.md) with CUDA events: per call
    over back-to-back calls (launch cost included), and on the device over
    calls queued behind a spin kernel (launch gaps hidden), warm (the same
    buffers every call, in L2) and cold (more distinct buffers than L2
@@ -37,8 +40,10 @@ Phases, each printed on its own line:
    JAX layout) on the full default vocabulary (168,840 nodes), exactly
    (words, ok, gate), inside guard rows: M = 1024 descriptors of an
    extracted room frame and M = 2048 of a frame extracted at the monocular
-   initialization's budget, seeded random sets of both sizes, a tenth of
-   the rows invalid, and the ragged M = 1 and 1023 (checked only); its
+   initialization's budget; checked only, seeded random sets of both
+   sizes, a tenth of the rows invalid, the ragged M = 1 and 1023 and M =
+   100,000 over a tree trained on the host with leaves above its last level
+   and nodes of fewer than k children; the frames'
    times warm and cold in turns with the first kernel
    (csrc/bow_assign_twotrip_probe.cu) and its variants, the empty
    kernel of its grid, its byte bound (the distinct bytes this run's
@@ -53,6 +58,16 @@ Phases, each printed on its own line:
    P=8192, E=65536), held to the same call on the CPU (final cost within
    1e-3 relative, inlier masks equal on >= 99.5% of edges), with ms per
    solve from CUDA events and kernels per solve from a profiler trace;
+   3e. the vocabulary trainer (in this process after phase 10, while the
+   laps of phase 8 run on): the first 5 scenes of the JAX script's
+   descriptor set (one of each image mode, 1000 features) extracted on the
+   card by train_vocab.gather_descriptors, a k=10, 3-level tree trained
+   on the card (io/vocabulary.train_vocabulary(device="cuda")), equal to
+   the host trainer's on the same descriptors on every array;
+   `hamming_best2` and `bow_assign` launched under the caller "vocab";
+   `hamming_best2` timed at the root split's shape [N,10], all true; then
+   the host-bookkeeping probe (utils/bench_host_ops.py) at K = 50 and 150
+   keyframes, its table printed, no gate;
 4. drives the port's synchronous path, System(cfg, device="cuda")
    .track_rgbd with the mapper inline, over the RGB-D benchmark room
    (640x480, 1000 features, bf=250, ThDepth=25): the first 12 frames of the
@@ -115,8 +130,10 @@ Phases, each printed on its own line:
    inliers, inliers after the Sim(3) refinement, support matches, fused
    points, essential-graph edges and loop connections, ms per part of
    LoopCloser.process), ms per global-BA chunk and solve, the ATE before
-   and after the first correction and at the end, and the kernels'
-   launches by caller; `hamming_best2` must have
+   and after the first correction and at the end, the kernels'
+   launches by caller, and the first frame that was not OK after the
+   initialization with the gate that dropped it (LapRecorder; a failed
+   lap names them); `hamming_best2` must have
    been launched by the loop closer (caller "loop") on both laps;
 9. map checkpoints, map merging and the dataset drivers, after phase 7b,
    beside both laps:
@@ -192,13 +209,24 @@ both Hamming kernels must have been launched on the synchronous and on the
 pipelined path of every sensor, `bow_assign` by the mapper of every pipelined
 path that makes keyframes, by the relocalizer in phase 7 and by the load in
 9a, each time with the vocabulary's packed table (no call may pack it on the
-fly), `hamming_best2` by the entry of 10a, and all three by the endurance
-run of 10e. Then it prints the seconds
+fly), `hamming_best2` by the entry of 10a, all three by the endurance
+run of 10e, and `hamming_best2` and `bow_assign` by the trainer of 3e. Then
+it prints the seconds
 of each phase (the laps of phase 8 run beside phases 4 to 10 and print
 their own), the kernel table as one JSON
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no "ok" line. Imports nothing
 of JAX.
+
+    python3 chip_smoke.py --lap-start SENSOR RUNS FRAMES [--deterministic]
+
+is a probe that a default run never enters: the first FRAMES frames of
+phase 8's lap of SENSOR (rendered once) through RUNS fresh Systems built as
+phase 8 builds them, one line a run (the initialization frame, the map
+scale and final cost of the initialization's BA and of the first two local
+BAs, the first frame not OK and the gate that dropped it), with
+--deterministic under torch.use_deterministic_algorithms(True,
+warn_only=True), printing the warnings it collects.
 """
 from __future__ import annotations
 
@@ -271,6 +299,15 @@ ENDURANCE_MIN_TRACKED = 90
 # point one float32 ulp towards +inf and -inf; with the default GBA, their
 # spread is the float32 resolution of the map's solve
 GBA_CG_NUDGES = (None, np.inf, -np.inf)
+# phase 3: the widths and heights the vocabulary trainer gives hamming_best2
+# (a k-means++ seeding step [N, 1], an assignment [N, k] at k = 10 and the
+# default vocabulary's 11, the root of a large training set), all true
+VOCAB_BEST2_SHAPES = ((4096, 1), (4096, 10), (4096, 11), (100000, 10))
+VOCAB_BOW_ROWS = 100000   # bow_assign over a freshly trained tree
+# phase 3e: the trainer on the card, one scene of each image mode
+VOCAB_SCENES, VOCAB_FEATURES, VOCAB_K, VOCAB_LEVELS = 5, 1000, 10, 3
+VOCAB_FIELDS = ("node_desc", "node_children", "node_word", "word_node", "word_weight")
+HOST_OPS_KEYFRAMES = (50, 150)
 T = None      # orbslam2_tpu_torch.utils.cuda_timing, imported in main()
 
 
@@ -394,43 +431,119 @@ def best2_row(CK, PH, lib, mma_per_s: float, kind: str, a_np, b_np, cand_np,
 
 
 def check_hamming_best2(CK, PH, lib, mma_per_s: float, voc, timed: bool = True) -> dict:
-    """`hamming_best2` at every shape and mask kind (cold on the sparse
-    mask), at the stereo and the monocular-initialization case, and under
-    the same-node mask of `match_by_bow` on vocabulary `voc`."""
+    """`hamming_best2` at every shape and mask kind (timed, warm and cold,
+    on the sparse mask), at the stereo and the monocular-initialization
+    case, under the same-node mask of `match_by_bow` on vocabulary `voc`,
+    and all true at the vocabulary trainer's shapes (checked only)."""
     rows = {}
     for A, B in HAMMING_SHAPES:
+        # the full and edge masks are checked, not timed: their warm times
+        # equal the sparse mask's (PERF.md)
         for kind, a_np, b_np, cand_np in PH.best2_cases(A, B, seed=0):
             rows[(A, B, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np, b_np,
                                            cand_np, cold=kind == "sparse", reps=10,
-                                           timed=timed)
+                                           timed=timed and kind == "sparse")
     for kind, a_np, b_np, cand_np in PH.best2_path_cases(seed=0, voc=voc):
         rows[(*cand_np.shape, kind)] = best2_row(CK, PH, lib, mma_per_s, kind, a_np,
                                                  b_np, cand_np, cold=True, reps=10,
                                                  timed=timed)
+    rng = np.random.default_rng(1)
+    for A, B in VOCAB_BEST2_SHAPES:  # checked only; 3e times the trainer's root
+        rows[(A, B, "all-true")] = best2_row(
+            CK, PH, lib, mma_per_s, "all-true", PH.descriptors(rng, A),
+            PH.descriptors(rng, B), np.ones((A, B), bool), cold=False, reps=10,
+            timed=False)
     return rows
+
+
+def early_leaf_tree():
+    """A tree trained on the host (k=10, 4 levels, 2,000 seeded random
+    descriptors) with leaves above the last level and nodes of fewer than
+    k children, as a fresh training gives them."""
+    from orbslam2_tpu_torch.io.vocabulary import train_vocabulary
+    rng = np.random.default_rng(2)
+    voc = train_vocabulary(rng.integers(0, 2 ** 32, (2000, 8), dtype=np.uint32),
+                           k=10, levels=4, seed=0)
+    depth = np.zeros(len(voc.node_desc), int)
+    for i, ch in enumerate(voc.node_children):
+        depth[ch[ch >= 0]] = depth[i] + 1
+    n_children = (voc.node_children >= 0).sum(axis=1)
+    if not ((depth[voc.word_node] < voc.levels).any()
+            and ((n_children > 0) & (n_children < voc.k)).any()):
+        raise AssertionError("the trained tree has no early leaf or short child list")
+    return voc
 
 
 def check_bow_assign(PH, lib, twotrip, voc, frames: dict, timed: bool = True) -> dict:
     """`bow_assign` against both plain versions on the full vocabulary,
     inside guard rows: the extracted frames' descriptors (with every tenth
-    valid row declared invalid), the seeded random sets, and the ragged
-    M = 1 and 1023 (checked only); timed (if `timed`) in turns with the
-    first kernel and the variants."""
+    valid row declared invalid), then, checked only, the seeded random
+    sets, the ragged M = 1 and 1023, and M = 100,000 over a freshly trained
+    tree; the frames timed (if `timed`) in turns with the first kernel and
+    the variants."""
     rows = {}
     cases = [(f"room-frame-{len(d)}", d, v & (np.arange(len(d)) % 10 != 0), timed)
              for d, v in frames.values()]
-    cases += [(*c, timed) for c in PH.bow_cases(voc, seed=0)]
+    # the seeded random sets are checked, not timed: their times equal the
+    # room frames' of the same M (PERF.md)
+    cases += [(*c, False) for c in PH.bow_cases(voc, seed=0)]
     cases += [(*c, False) for c in PH.bow_cases(voc, seed=1, sizes=(1, 1023))]
-    for kind, desc, valid, timed_case in cases:
+    cases = [(voc, *c) for c in cases]
+    tree = early_leaf_tree()
+    cases += [(tree, f"trained-tree-{kind}", d, v, False)
+              for kind, d, v in PH.bow_cases(tree, seed=2, sizes=(VOCAB_BOW_ROWS,))]
+    for tree_of, kind, desc, valid, timed_case in cases:
         if timed_case:
             print("phase 3c: ", end="")
-        rows[kind] = PH.bow_row(lib, twotrip, voc, kind, np.ascontiguousarray(desc),
+        rows[kind] = PH.bow_row(lib, twotrip, tree_of, kind, np.ascontiguousarray(desc),
                                 valid, timed=timed_case)
         if not timed_case:
-            print(f"phase 3c: bow_assign M={len(desc)} ({kind}) exact against both "
-                  "plain versions, the first kernel and the variants; guard rows "
-                  "intact", flush=True)
+            print(f"phase 3c: bow_assign M={len(desc)} ({kind}, {len(tree_of.node_desc)} "
+                  "nodes) exact against both plain versions, the first kernel and the "
+                  "variants; guard rows intact", flush=True)
     return rows
+
+
+def check_vocab(CK, PH, lib, mma_per_s: float) -> dict:
+    """Phase 3e: the vocabulary trainer on the card. Gathers the JAX
+    script's first scenes (one of each image mode) with extract_orb on the
+    card, trains with io/vocabulary.train_vocabulary(device="cuda") (every
+    split distance on `hamming_best2`, the idf pass on `bow_assign`, both
+    launched under "vocab") and holds the tree to the host trainer's on the
+    same descriptors, exactly. Then times `hamming_best2` at the root split's
+    shape, [N, k] all true, warm and cold against its floor and bound.
+    Returns the run's launches and the timed row."""
+    from orbslam2_tpu_torch import train_vocab
+    from orbslam2_tpu_torch.io.vocabulary import train_vocabulary
+    tag = "phase 3e"
+    t0 = time.perf_counter()
+    desc = train_vocab.gather_descriptors(VOCAB_SCENES, VOCAB_FEATURES, "cuda")
+    t_gather = time.perf_counter() - t0
+    CK.reset_launch_counts()
+    seconds: dict = {}
+    card = train_vocabulary(desc, k=VOCAB_K, levels=VOCAB_LEVELS, seed=0, device="cuda",
+                            seconds=seconds)
+    torch.cuda.synchronize()
+    launches = launch_counts(CK)
+    t0 = time.perf_counter()
+    host = train_vocabulary(desc, k=VOCAB_K, levels=VOCAB_LEVELS, seed=0)
+    host_s = time.perf_counter() - t0
+    differ = [f for f in VOCAB_FIELDS if not np.array_equal(getattr(card, f), getattr(host, f))]
+    if differ:
+        raise AssertionError(f"{tag}: the card's tree differs from the host's in {differ}")
+    for kernel in ("hamming_best2", "bow_assign"):
+        if launches[kernel].get("vocab", 0) <= 0:
+            raise AssertionError(f"{tag}: the trainer never launched {kernel}")
+    words = np.ascontiguousarray(desc, np.uint32).view(np.int32)
+    row = best2_row(CK, PH, lib, mma_per_s, "vocab-root", words, words[:VOCAB_K],
+                    np.ones((len(words), VOCAB_K), bool), cold=True, reps=10)
+    print(f"{tag}: train_vocabulary on the card, {len(desc)} descriptors of "
+          f"{VOCAB_SCENES} scenes (gathered in {t_gather:.1f} s), k={VOCAB_K}, "
+          f"{VOCAB_LEVELS} levels: {len(card.node_desc)} nodes, {card.n_words} words, "
+          f"equal to the host trainer's tree on {', '.join(VOCAB_FIELDS)}; split "
+          f"{seconds['split']:.2f} s and idf pass {seconds['idf']:.2f} s on the card, "
+          f"host trainer {host_s:.2f} s; launches {launches}", flush=True)
+    return dict(launches=launches, row=row)
 
 
 def _rot_deg(dR: np.ndarray) -> float:
@@ -939,19 +1052,189 @@ def check_reloc_rescue(P, CK) -> None:
         raise AssertionError(f"{tag}: kernel launches {launches}")
 
 
-def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
-               async_mapping: bool) -> dict:
+class LapRecorder:
+    """What one System's tracker and mapper did on a lap, frame by frame,
+    recorded by wrapping methods of those instances (the package is left as
+    it is): the frame whose state first became OK (the initialization), the
+    first frame after it whose state is not OK, and the gate that dropped
+    it: the motion-model gate or the inlier gate of
+    Tracker._track_fused_finish, an empty local map in _track_fused, or
+    the staged path's TrackReferenceKeyFrame, TrackLocalMap or relocalizer.
+    With `gt`, also the initialization's two-keyframe BA and the first two
+    local BAs: the map scale before and after each (the distance between the
+    camera centres of the map's first two keyframes over the true one; the
+    initialization then scales the map to a median depth of 1) and the
+    solve's final cost. `detach()`
+    restores the module function that the BA recording wraps."""
+
+    N_BAS = 2
+
+    def __init__(self, slam, gt=None):
+        import threading
+        self.slam, self.gt = slam, gt
+        self.frame = -1
+        self.init_frame = self.first_loss = None
+        self.rec: dict = {}
+        self.bas: list = []
+        tr = slam.tracker
+        self._wrap(tr, "process_image", self._process_image)
+        self._wrap(tr, "_track_fused_finish", self._fused_finish)
+        self._wrap(tr, "_select_local_points", self._local_points)
+        self._wrap(tr, "_pose_optimize", self._pose_optimize)
+        for name in ("_track_reference_keyframe", "_track_local_map", "_relocalize"):
+            self._wrap(tr, name, self._stage(name))
+        self._ba_module = None
+        if gt is not None:
+            from orbslam2_tpu_torch import local_mapping
+            self._in_ba = threading.local()
+            self._ba_module = local_mapping.BA
+            self._ba_solve = local_mapping.BA.ba_solve
+            local_mapping.BA.ba_solve = self._solve
+            self._wrap(slam.local_mapper, "run_ba", self._run_ba)
+
+    @staticmethod
+    def _wrap(obj, name: str, make) -> None:
+        setattr(obj, name, make(getattr(obj, name)))
+
+    def detach(self) -> None:
+        if self._ba_module is not None:
+            self._ba_module.ba_solve = self._ba_solve
+            self._ba_module = None
+
+    def _process_image(self, orig):
+        from orbslam2_tpu_torch.tracking import TrackState
+
+        def run(*a, **kw):
+            self.frame += 1
+            self.rec = {"pose_opt": []}
+            pose = orig(*a, **kw)
+            ok = self.slam.tracker.state == TrackState.OK
+            if ok and self.init_frame is None:
+                self.init_frame = self.frame
+            if not ok and self.init_frame is not None and self.first_loss is None:
+                self.first_loss = (self.frame, self.gate())
+            return pose
+        return run
+
+    def _fused_finish(self, orig):
+        def run(mp, cam, last, timestamp, T2, n_cand, n_mm, n_inl1, n_inl2, *rest):
+            need = 50 if self.slam.tracker.n_lost_frames > 0 else 30
+            self.rec["fused"] = (n_cand, n_mm, n_inl1, n_inl2, need)
+            return orig(mp, cam, last, timestamp, T2, n_cand, n_mm, n_inl1, n_inl2, *rest)
+        return run
+
+    def _local_points(self, orig):
+        def run(*a, **kw):
+            got = orig(*a, **kw)
+            if got[0] is None:
+                self.rec["no_local_points"] = True
+            return got
+        return run
+
+    def _pose_optimize(self, orig):
+        def run(*a, **kw):
+            n = orig(*a, **kw)
+            self.rec["pose_opt"].append(n)
+            return n
+        return run
+
+    def _stage(self, name: str):
+        def make(orig):
+            def run(*a, **kw):
+                before = len(self.rec["pose_opt"])
+                ok = orig(*a, **kw)
+                inl = self.rec["pose_opt"][before:]
+                self.rec[name] = (bool(ok), inl[-1] if inl else None)
+                return ok
+            return run
+        return make
+
+    def gate(self) -> str:
+        """The gate that dropped this frame, from what the frame recorded."""
+        rec, parts = self.rec, []
+        if "fused" in rec:
+            n_cand, n_mm, n_inl1, n_inl2, need = rec["fused"]
+            if not (n_cand >= 10 and n_mm >= 20 and n_inl1 >= 10):
+                parts.append(f"_track_fused_finish motion-model gate (n_cand {n_cand} "
+                             f">= 10, n_mm {n_mm} >= 20, n_inl1_map {n_inl1} >= 10) "
+                             "failed, staged fallback")
+            else:
+                parts.append(f"_track_fused_finish inlier gate: n_inl2_map {n_inl2} "
+                             f"< {need}")
+        elif rec.get("no_local_points"):
+            parts.append("_track_fused: no local map points, staged track()")
+        for name, what in (("_track_reference_keyframe", "TrackReferenceKeyFrame"),
+                           ("_track_local_map", "TrackLocalMap"),
+                           ("_relocalize", "relocalization")):
+            if name in rec:
+                ok, inl = rec[name]
+                res = ("ok" if ok else "failed") + (
+                    f" at {inl} pose inliers" if inl is not None else
+                    " before its pose optimization")
+                parts.append(f"{what} {res}")
+        return "; ".join(parts) or "no tracking stage ran"
+
+    def loss_line(self) -> str:
+        if self.first_loss is None:
+            return "no frame lost after the initialization"
+        return f"first frame not OK {self.first_loss[0]}: {self.first_loss[1]}"
+
+    def _solve(self, *a, **kw):
+        res = self._ba_solve(*a, **kw)
+        if getattr(self._in_ba, "on", False):
+            self._in_ba.cost = float(res.cost)
+        return res
+
+    def _scale(self) -> float:
+        mp = self.slam.map
+        kfs = np.flatnonzero(mp.kf_valid)[:2]
+        if len(kfs) < 2:
+            return float("nan")
+        c = [-mp.kf_pose[k][:, :3].T @ mp.kf_pose[k][:, 3] for k in kfs]
+        g = [self.gt[int(round(mp.kf_timestamp[k] * 30))] for k in kfs]
+        g = [-T[:3, :3].T @ T[:3, 3] for T in g]
+        return float(np.linalg.norm(c[1] - c[0]) / np.linalg.norm(g[1] - g[0]))
+
+    def _run_ba(self, orig):
+        def run(*a, **kw):
+            n_local = sum(b["label"] != "init BA" for b in self.bas)
+            if n_local >= self.N_BAS:
+                return orig(*a, **kw)
+            # the tracker's two-keyframe BA runs before the state is OK and
+            # before the map is scaled to a median depth of 1
+            label = "init BA" if self.init_frame is None else f"local BA {n_local + 1}"
+            before = self._scale()
+            self._in_ba.on, self._in_ba.cost = True, float("nan")
+            try:
+                out = orig(*a, **kw)
+            finally:
+                self._in_ba.on = False
+            self.bas.append(dict(label=label, frame=self.frame, scale_before=before,
+                                 scale_after=self._scale(), cost=self._in_ba.cost))
+            return out
+        return run
+
+
+def lap_system(P, scene, sensor: str):
+    """A fresh System for one corridor lap, as phase 8 builds it."""
+    from orbslam2_tpu_torch.utils.profile_frame import bench_config
+    cfg = bench_config(scene, P.Sensor.MONOCULAR if sensor == "mono" else P.Sensor.RGBD)
+    return P.System(cfg, device="cuda", async_mapping=LOOP_ASYNC[sensor])
+
+
+def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str) -> dict:
     """Phase 8, one lap of the corridor through the sensor's entry point
     (track_rgbd, track_monocular), one frame at a time, with the mapper on
-    its worker (`async_mapping`) or inline. Records the ATE just before the
+    its worker or inline (LOOP_ASYNC). Records the ATE just before the
     first loop correction and just after it (before the global BA it
     launches lands), applies the gates of tests/test_loop_closure_e2e.py and
-    returns the lap's launches."""
-    from orbslam2_tpu_torch.utils.profile_frame import bench_config
+    returns the lap's launches. A failure names the first frame that was not
+    OK after the initialization and the gate that dropped it (LapRecorder)."""
     tag = f"phase 8 {sensor}"
     mono = sensor == "mono"
-    cfg = bench_config(scene, P.Sensor.MONOCULAR if mono else P.Sensor.RGBD)
-    slam = P.System(cfg, device="cuda", async_mapping=async_mapping)
+    async_mapping = LOOP_ASYNC[sensor]
+    slam = lap_system(P, scene, sensor)
+    recorder = LapRecorder(slam)
     lc = slam.loop_closer
     ates: dict = {}
 
@@ -1004,7 +1287,8 @@ def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
           f"{gba.n_aborted} aborted, {gba.n_applied} applied, ms per chunk of the last "
           f"solve {[round(x, 1) for x in gba.chunk_ms]}, ms per whole solve "
           f"{[round(x, 1) for x in gba.solve_ms]}; {seconds:.1f} s in all; kernel "
-          f"launches {launches}; card {T.card_line()}", flush=True)
+          f"launches {launches}; initialized at frame {recorder.init_frame}, "
+          f"{recorder.loss_line()}; card {T.card_line()}", flush=True)
     g = LOOP_GATES[sensor]
     fails = []
     if tracked < g["tracked"]:
@@ -1026,7 +1310,8 @@ def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
             fails.append(f"pre-loop ATE {100 * before:.3f} cm (gates: over "
                          f"{100 * g['pre_loop']:.1f} cm, above the final ATE)")
     if fails:
-        raise AssertionError(f"{tag}: " + "; ".join(fails))
+        raise AssertionError(f"{tag}: " + "; ".join(fails) + f"; initialized at frame "
+                             f"{recorder.init_frame}, {recorder.loss_line()}")
     return dict(launches=launches)
 
 
@@ -1048,8 +1333,69 @@ def loop_lap(sensor: str) -> int:
     corridor = synth.make_corridor(seed=3)
     lap = synth.corridor_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS)
     res = check_loop(P, CK, synth, evaluation, corridor, lap,
-                     render_corridor(synth, corridor, lap), sensor, LOOP_ASYNC[sensor])
+                     render_corridor(synth, corridor, lap), sensor)
     print(json.dumps({"lap": sensor, "launches": res["launches"]}), flush=True)
+    return 0
+
+
+def lap_start(sensor: str, runs: int, frames: int, deterministic: bool) -> int:
+    """The start of phase 8's lap, `runs` times (`--lap-start SENSOR RUNS
+    FRAMES [--deterministic]`; a default run never enters it): the lap's
+    first `frames` frames, rendered once as phase 8 renders them, through
+    fresh Systems built as phase 8 builds them, one frame at a time. One
+    line a run: the initialization frame, the map scale and final cost of
+    the first two local BAs, the first frame not OK after the
+    initialization and the gate that dropped it (LapRecorder). With
+    `deterministic`, the runs go under
+    torch.use_deterministic_algorithms(True, warn_only=True) (and cuBLAS's
+    fixed workspace), and the warnings collected are printed at the end."""
+    import os
+    import warnings
+    from collections import Counter
+    if deterministic:  # before the first cuBLAS call of the process
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import orbslam2_tpu_torch as P
+    from orbslam2_tpu_torch import native
+    from orbslam2_tpu_torch.io import synth
+    from orbslam2_tpu_torch.ops import cuda_kernels as CK
+    from orbslam2_tpu_torch.utils import cuda_timing
+    global T
+    T = cuda_timing
+    CK.build_kernels()
+    if not native.available():
+        raise RuntimeError("host map library (native/mapops.cpp) did not load")
+    corridor = synth.make_corridor(seed=3)
+    lap = synth.corridor_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS)
+    items = render_corridor(synth, corridor, lap[:frames])
+    mode = "deterministic algorithms" if deterministic else "default algorithms"
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    caught: Counter = Counter()
+    lost = 0
+    for run in range(runs):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            slam = lap_system(P, corridor, sensor)
+            rec = LapRecorder(slam, gt=lap)
+            t0 = time.perf_counter()
+            try:
+                tracked = slam.run_sequence(iter(items), pipelined=False)
+                slam.shutdown()
+                torch.cuda.synchronize()
+            finally:
+                rec.detach()
+        caught.update(str(w.message).splitlines()[0] for w in got)
+        lost += rec.first_loss is not None
+        bas = "; ".join(f"{b['label']} at frame {b['frame']}: scale {b['scale_before']:.4f}"
+                        f" -> {b['scale_after']:.4f}, final cost {b['cost']:.6g}"
+                        for b in rec.bas) or "no BA"
+        print(f"lap-start {sensor} run {run + 1}/{runs} ({mode}): initialized at frame "
+              f"{rec.init_frame}; {bas}; {rec.loss_line()}; tracked {tracked}/{len(items)}, "
+              f"keyframes {slam.map.n_keyframes}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"lap-start {sensor}: {lost} of {runs} runs lost a frame after the "
+          f"initialization ({mode}); warnings: "
+          f"{json.dumps(dict(caught)) if caught else 'none'}; card {T.card_line()}",
+          flush=True)
     return 0
 
 
@@ -1212,7 +1558,8 @@ def check_dataset(CK, evaluation, traj_io, tag: str, argv: list, out, gt,
         fails.append(f"{a} hamming_matrix and {b} hamming_best2 launches by the tracker "
                      f"over {len(ts)} tracked frames (gate: 1 and {per_frame} a frame)")
     if fails:
-        raise AssertionError(f"{tag}: " + "; ".join(fails))
+        raise AssertionError(f"{tag}: " + "; ".join(fails) + f"; initialized at frame "
+                             f"{recorder.init_frame}, {recorder.loss_line()}")
     return dict(launches=launches)
 
 
@@ -1399,7 +1746,8 @@ def check_endurance_smoke(CK) -> dict:
             or sum(launches["bow_assign"].values()) < made):
         fails.append(f"launches {launches} for {made} keyframes made")
     if fails:
-        raise AssertionError(f"{tag}: " + "; ".join(fails))
+        raise AssertionError(f"{tag}: " + "; ".join(fails) + f"; initialized at frame "
+                             f"{recorder.init_frame}, {recorder.loss_line()}")
     return dict(launches=launches)
 
 
@@ -1466,7 +1814,8 @@ def check_merge(P, CK, synth, evaluation, scene, gt, sys_a) -> dict:
     if not ate <= MERGE_ATE_GATE:
         fails.append(f"ATE {100 * ate:.3f} cm")
     if fails:
-        raise AssertionError(f"{tag}: " + "; ".join(fails))
+        raise AssertionError(f"{tag}: " + "; ".join(fails) + f"; initialized at frame "
+                             f"{recorder.init_frame}, {recorder.loss_line()}")
     return dict(launches=launches)
 
 
@@ -1820,6 +2169,10 @@ def main() -> int:
         return loop_lap(sys.argv[2])
     if sys.argv[1:2] == ["--gba-rank"] and len(sys.argv) == 5:
         return gba_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--lap-start"] and len(sys.argv) in (5, 6) \
+            and sys.argv[2] in LOOP_ASYNC and sys.argv[5:] in ([], ["--deterministic"]):
+        return lap_start(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                         sys.argv[5:] == ["--deterministic"])
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
@@ -1829,6 +2182,7 @@ def main() -> int:
     from orbslam2_tpu_torch.ops import features as FT
     from orbslam2_tpu_torch.ops import pnp as PNP
     from orbslam2_tpu_torch.utils import cuda_timing, evaluation
+    from orbslam2_tpu_torch.utils import bench_host_ops
     from orbslam2_tpu_torch.utils import probe_hamming as PH
     from orbslam2_tpu_torch.utils.profile_frame import bench_config
 
@@ -2002,6 +2356,14 @@ def main() -> int:
             p10["merged"] = check_merged_dist_ba(P, evaluation, sync[1]["system"], sweep,
                                                  work)
             lap_seconds("10d")
+        # the vocabulary trainer and the host-bookkeeping probe, in the time
+        # this process would wait for the laps
+        vocab = check_vocab(CK, PH, lib, mma_per_s)
+        lap_seconds("3e")
+        print(f"phase 3e: host bookkeeping (utils/bench_host_ops.py) at K = "
+              f"{HOST_OPS_KEYFRAMES}, ms, native library and numpy fallback:", flush=True)
+        bench_host_ops.main(keyframes=HOST_OPS_KEYFRAMES)
+        lap_seconds("3e host ops")
         loops = [finish_lap(*laps[sensor]) for sensor in ("mono", "rgbd")]
     finally:
         for proc, out, *_ in [*laps.values(), *dry.values()]:
@@ -2022,12 +2384,13 @@ def main() -> int:
     # row (the RGB-D sweep with async mapping, the orbits from disk through
     # run_dataset), the relocalization, loop, checkpoint and merge paths,
     # the entry and the endurance run
-    main_path = piped + [mono[0]] + reloc + loops + p9
+    main_path = piped + [mono[0]] + reloc + loops + p9 + [vocab]
     others = sync + stereo + [mono[1]]
     launches_by = {kernel: total(main_path, kernel) for kernel in KERNELS}
     print(f"phase 9: kernel launches on the pipelined paths of all sensors, the "
           f"relocalization paths after them, the corridor laps, the checkpoint, the "
-          f"merge, the dataset runs, the entry of 10a and the endurance run of 10e: "
+          f"merge, the dataset runs, the entry of 10a, the endurance run of 10e and "
+          f"the trainer of 3e: "
           f"{launches_by}; synchronous "
           f"paths: "
           f"{({k: total(others, k) for k in KERNELS})}", flush=True)
@@ -2060,8 +2423,9 @@ def main() -> int:
          "device_ms": r["dev"], "cold_device_ms": r["cold"], "floor_ms": r["floor"],
          "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"]}
-        for (_, _, kind), r in best2.items()
-        if kind in ("stereo-band", "init-window", "node-gate", "node-gate-mono")]
+        for (_, _, kind), r in [*best2.items(), ((0, 0, "vocab-root"), vocab["row"])]
+        if kind in ("stereo-band", "init-window", "node-gate", "node-gate-mono",
+                    "vocab-root")]
     # bow_assign at the mapper's and the relocalizer's shape: an extracted
     # frame's 1024 rows. It has no Pallas source: the XLA program
     # assign_words computes the same descent (no single PyTorch call does).

@@ -5,8 +5,9 @@ Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h): the pointer tree is flat
 arrays (node descriptors [N, 8], children table [N, k]) so the greedy
 descent (`transform`, TemplatedVocabulary.h:1241-1279) runs over all
 keypoints at once: on the device in ops/bow.assign_words, on the host in
-`assign_words_numpy`. Host numpy, apart from `device_tables_on`; the port
-keeps its own copy so that it imports nothing of the JAX package.
+`assign_words_numpy`. Host numpy, apart from the uploads and the device
+path of `train_vocabulary`; the port keeps its own copy so that it imports
+nothing of the JAX package.
 
 - `Vocabulary`: the arrays, with npz save/load. Node descriptors are stored
   as uint32 words (the file format of both packages); `device_tables` gives
@@ -19,7 +20,9 @@ keeps its own copy so that it imports nothing of the JAX package.
 - `default_vocabulary`: the vocabulary shipped with the package
   (data/vocab_default.npz, the same file as the JAX package's).
 - `train_vocabulary`: hierarchical k-medians (k-means over Hamming space
-  with majority-vote bit medians, k-means++ seeding).
+  with majority-vote bit medians, k-means++ seeding), on the host or, with
+  `device=`, on the `hamming_best2` and `bow_assign` kernels with the same
+  draws and the same tree.
 - `load_orbvoc_text`: parser for the public ORBvoc.txt format
   (TemplatedVocabulary.h:243-255 loadFromTextFile).
 
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, NamedTuple
@@ -257,43 +261,146 @@ def _kmedians_binary(bits, k, rng, iters=8, packed=None):
     return centers, assign
 
 
-def train_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 4,
-                     seed: int = 0, max_train: int = 60000) -> Vocabulary:
-    """Build a k^levels-leaf vocabulary from [N, 8] u32 descriptors
-    (TemplatedVocabulary::create equivalent). Weights = idf over the
-    training set."""
-    rng = np.random.default_rng(seed)
-    if len(descriptors) > max_train:
-        descriptors = descriptors[rng.choice(len(descriptors), max_train,
-                                             replace=False)]
-    bits = _unpack_bits(descriptors)
-
-    node_desc = [np.zeros(256, np.uint8)]  # root placeholder
+def _grow_tree(root, root_desc, levels: int, split):
+    """The breadth-first k-median split of TemplatedVocabulary::create:
+    a node becomes a leaf at depth `levels`, with at most one descriptor,
+    or when its cluster came out empty. `split(subset)` returns (the child
+    centres, each child's subset in the parent's row order). Returns
+    (node descriptors, node children, leaf nodes), the root's descriptor
+    `root_desc`."""
+    node_desc = [root_desc]
     node_children: list[list[int]] = [[]]
     node_level = [0]
-    # BFS split
-    queue = [(0, bits)]
+    queue = [(0, root)]
     leaf_nodes = []
     while queue:
         nid, subset = queue.pop(0)
         if node_level[nid] == levels or len(subset) <= 1:
             leaf_nodes.append(nid)
             continue
-        centers, assign = _kmedians_binary(subset, k, rng)
+        centers, subs = split(subset)
         for c in range(len(centers)):
             child = len(node_desc)
             node_desc.append(centers[c])
             node_children.append([])
             node_level.append(node_level[nid] + 1)
             node_children[nid].append(child)
-            sub = subset[assign == c]
-            if len(sub) == 0:
+            if len(subs[c]) == 0:
                 leaf_nodes.append(child)
             else:
-                queue.append((child, sub))
+                queue.append((child, subs[c]))
+    return node_desc, node_children, leaf_nodes
+
+
+def _split_host(bits, k, rng):
+    centers, assign = _kmedians_binary(bits, k, rng)
+    return centers, [bits[assign == c] for c in range(len(centers))]
+
+
+def _unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """[N, 8] int32 descriptor words -> [N, 256] int32 bits in the order of
+    `_unpack_bits` (bit i of word w at 32 w + i)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, :, None] >> shifts) & 1).reshape(len(words), 256)
+
+
+def _pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """[N, 256] int32 bits -> [N, 8] int32 words (`_unpack_words` undone;
+    bit 31 makes the word negative, and the sum of the others stays below
+    2^31, so the int32 sum does not wrap)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    return (bits.reshape(len(bits), 8, 32) << shifts).sum(-1, dtype=torch.int32)
+
+
+def _kmedians_on(words: torch.Tensor, k: int, rng, iters: int = 8):
+    """`_kmedians_binary` on the device of `words` ([N, 8] int32 descriptor
+    words), draw for draw: every distance comes from the `hamming_best2`
+    kernel under an all-true mask, [N, 1] for a k-means++ seeding step
+    (its best is the distance) and [N, k] for the assignment (its index is
+    the lowest column at the least distance: numpy's argmin). The seeding's
+    distances are read back once a draw, so that `rng.choice` runs on the
+    host's integers. The majority medians count bits per cluster with an
+    integer `index_add_`: a bit is set when 2 count > size, which is
+    `mean > 0.5` exactly. Reads back nothing else but the convergence test.
+    Returns (centres [k, 8] int32 words, assignment [N] int64, cluster
+    sizes [k] int32), all on the device."""
+    from ..ops.cuda_kernels import hamming_best2
+    n, dev = len(words), words.device
+    k = min(k, n)
+    center_idx = [int(rng.integers(n))]
+    one = torch.ones((n, 1), dtype=torch.bool, device=dev)
+    d_min = None
+    for _ in range(k - 1):
+        c = center_idx[-1]
+        d_new = hamming_best2(words, words[c:c + 1], one)[1]
+        d_min = d_new if d_min is None else torch.minimum(d_min, d_new)
+        d = d_min.cpu().numpy()
+        tot = float(d.sum())
+        if tot < 1e-9:
+            center_idx.append(int(rng.integers(n)))
+        else:
+            center_idx.append(int(rng.choice(n, p=d.astype(np.float64) / tot)))
+    bits = _unpack_words(words)
+    centers = bits[torch.tensor(center_idx, device=dev)]
+    every = torch.ones((n, k), dtype=torch.bool, device=dev)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    assign = torch.zeros(n, dtype=torch.int64, device=dev)
+    sizes = torch.zeros(k, dtype=torch.int32, device=dev)
+    for _ in range(iters):
+        assign = hamming_best2(words, _pack_words(centers), every)[0].long()
+        count = torch.zeros((k, 256), dtype=torch.int32, device=dev).index_add_(0, assign, bits)
+        sizes = torch.zeros(k, dtype=torch.int32, device=dev).index_add_(0, assign, ones)
+        new = torch.where(sizes[:, None] > 0, (2 * count > sizes[:, None]).int(), centers)
+        if torch.equal(new, centers):
+            break
+        centers = new
+    return _pack_words(centers), assign, sizes
+
+
+def _split_on(words: torch.Tensor, k: int, rng):
+    """`_split_host` on the device: the children's subsets by a stable sort
+    of the assignment, each in the parent's row order (the next split's
+    draws index into it). Reads back the centres and the sizes."""
+    centers, assign, sizes = _kmedians_on(words, k, rng)
+    order = torch.sort(assign, stable=True).indices
+    return centers.cpu().numpy(), torch.split(words[order], sizes.cpu().tolist())
+
+
+def train_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 4,
+                     seed: int = 0, max_train: int = 60000, device=None,
+                     seconds: dict | None = None) -> Vocabulary:
+    """Build a k^levels-leaf vocabulary from [N, 8] u32 descriptors
+    (TemplatedVocabulary::create equivalent). Weights = idf over the
+    training set.
+
+    device=None: host numpy. With a device the split runs there
+    (`_kmedians_on`: the same draws, the `hamming_best2` kernel for every
+    distance) and the idf pass descends the new tree with the `bow_assign`
+    kernel (ops/bow.assign_words); the tree is the host's exactly. The
+    device's launches count under the caller "vocab". `seconds`, if given,
+    receives the seconds of the split and of the idf pass."""
+    rng = np.random.default_rng(seed)
+    if len(descriptors) > max_train:
+        descriptors = descriptors[rng.choice(len(descriptors), max_train,
+                                             replace=False)]
+    t0 = time.perf_counter()
+    if device is None:
+        node_desc, node_children, leaf_nodes = _grow_tree(
+            _unpack_bits(descriptors), np.zeros(256, np.uint8), levels,
+            functools.partial(_split_host, k=k, rng=rng))
+        desc_arr = _pack_bits(np.stack(node_desc))
+    else:
+        from ..ops.cuda_kernels import launches_counted_as
+        words = torch.from_numpy(np.ascontiguousarray(descriptors, np.uint32)
+                                 .view(np.int32)).to(device)
+        with launches_counted_as("vocab"):
+            node_desc, node_children, leaf_nodes = _grow_tree(
+                words, np.zeros(8, np.int32), levels,
+                functools.partial(_split_on, k=k, rng=rng))
+        desc_arr = np.stack(node_desc).view(np.uint32)
+    t1 = time.perf_counter()
 
     N = len(node_desc)
-    desc_arr = _pack_bits(np.stack(node_desc))
     child_arr = np.full((N, k), -1, np.int32)
     for i, ch in enumerate(node_children):
         child_arr[i, :len(ch)] = ch
@@ -305,12 +412,32 @@ def train_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 4,
     voc = Vocabulary(k, levels, desc_arr, child_arr, node_word,
                      np.ones(len(word_node), np.float32), word_node)
     # idf weights from the training set
-    words = assign_words_numpy(voc, descriptors)
+    if device is None:
+        words = assign_words_numpy(voc, descriptors)
+    else:
+        words = _assign_words_on(voc, descriptors, device)
     n_docs = max(len(descriptors) // 500, 1)  # pseudo-documents of 500 feats
     counts = np.bincount(words, minlength=voc.n_words).astype(np.float64)
     idf = np.log(max(len(descriptors), 1) / np.maximum(counts, 1.0))
     voc.word_weight = np.maximum(idf, 1e-3).astype(np.float32)
+    if seconds is not None:
+        seconds.update(split=t1 - t0, idf=time.perf_counter() - t1)
     return voc
+
+
+def _assign_words_on(voc: Vocabulary, descriptors: np.ndarray, device) -> np.ndarray:
+    """`assign_words_numpy` through ops/bow.assign_words (the `bow_assign`
+    kernel over the tree's children-block table on `device`), counted
+    under "vocab"."""
+    from ..ops.bow import assign_words
+    from ..ops.cuda_kernels import launches_counted_as
+    desc = torch.from_numpy(np.ascontiguousarray(descriptors, np.uint32)
+                            .view(np.int32)).to(device)
+    valid = torch.ones(len(desc), dtype=torch.bool, device=desc.device)
+    with launches_counted_as("vocab"):
+        words, _, _ = assign_words(*voc.device_tables_on(device), desc, valid,
+                                   voc.levels, blocks=voc.child_blocks_on(device))
+    return words.cpu().numpy().astype(np.int64)
 
 
 def assign_words_numpy(voc: Vocabulary, descriptors: np.ndarray) -> np.ndarray:

@@ -5,10 +5,13 @@ full matrix; medoid descriptors), copied from
 orbslam2_tpu/native. It is compiled with g++ on first use into `build/` at
 the repository root (_build.py). When g++ is missing or the build fails,
 every entry point returns None and MapState falls back to numpy: this is
-host bookkeeping and hides no device work.
+host bookkeeping and hides no device work. `withheld()` makes every entry
+point return None inside a block, so that the host-bookkeeping probe
+(utils/bench_host_ops.py) can time the numpy fallback beside the library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import subprocess
 from pathlib import Path
@@ -20,10 +23,13 @@ from .._build import build_library
 _SRC = Path(__file__).parent / "mapops.cpp"
 _lib = None
 _tried = False
+_held = False
 
 
 def _load():
     global _lib, _tried
+    if _held:
+        return None
     if _lib is not None or _tried:
         return _lib
     _tried = True
@@ -50,6 +56,18 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+@contextlib.contextmanager
+def withheld():
+    """Inside the block every entry point returns None, as without g++,
+    and MapState takes its numpy fallback (in every thread)."""
+    global _held
+    prev, _held = _held, True
+    try:
+        yield
+    finally:
+        _held = prev
 
 
 def covis_weights(kf_pt: np.ndarray, kf_valid: np.ndarray, k: int,
