@@ -161,7 +161,8 @@ def run(args) -> dict:
         "closures": closures,
         "device": device,
         "launches": {name: dict(getattr(CK, name).launches_by)
-                     for name in ("hamming_matrix", "hamming_best2", "bow_assign")},
+                     for name in ("hamming_matrix", "hamming_best2", "bow_assign",
+                                  "seg_sum")},
         "max_keyframes": cfg.max_keyframes,
     }
 

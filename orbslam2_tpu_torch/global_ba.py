@@ -49,6 +49,7 @@ import torch.distributed as dist
 from .config import SlamConfig
 from .map.mapstate import MapState
 from .ops import ba as BA
+from .ops import cuda_kernels as CK
 from .ops import features as F
 from .parallel import dist_ba, multihost
 from .utils.metrics import log_event
@@ -150,7 +151,9 @@ class GlobalBA:
         t0 = time.perf_counter()
         chunk_ms = []
         res = None
-        with torch.cuda.stream(stream):  # no-op without a stream (the CPU)
+        # no-op without a stream (the CPU); the solve's kernel launches count
+        # under "gba"
+        with torch.cuda.stream(stream), CK.launches_counted_as("gba"):
             solve, n_dev = self._solver_fn(prob)
             if n_dev > 1:
                 log_event("gba_distributed", devices=n_dev,

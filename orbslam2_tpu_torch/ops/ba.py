@@ -6,8 +6,11 @@ replaces g2o's sparse BlockSolver_6_3 + OptimizationAlgorithmLevenberg:
 
 - residuals and Jacobians of every observation edge in one batch (mono and
   stereo edges unified, ops/ba_core.py);
-- block assembly by segment sums over the edge list (`index_add_`):
-  Hcc [C,6,6], Hpp [P,3,3], the per-edge coupling W [E,6,3];
+- block assembly by segment sums over the edge list (`seg_sum`, the
+  order-fixed kernel of ops/cuda_kernels.py, so a solve repeats itself bit
+  for bit as the JAX package's does): Hcc [C,6,6], Hpp [P,3,3], the
+  per-edge coupling W [E,6,3]. The edge structure is fixed through a
+  solve, so the sums' plans (`BAPlans`) are built once a solve;
 - point marginalization by batched 3x3 inverses (the reference's
   `setMarginalized(true)` Schur trick, src/Optimizer.cpp:707);
 - the reduced camera system S = Hcc - W Hpp^-1 W^T either formed and solved
@@ -38,14 +41,11 @@ from ..geometry import se3
 from ..parallel import collectives as COL
 from ..utils.device import upload
 from . import ba_core as BC
+from . import cuda_kernels as CK
 
 MIN_DEPTH = 0.05    # meters; below this J ~ 1/z^2 risks f32 overflow
 CHI2_TRIM = 1e5     # edges beyond this are excluded from the normal system
-
-
-def _seg_sum(x, idx, n):
-    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx, x)
+_CHOL_BLOCK = 64    # rows of a diagonal block of the CPU Cholesky (_cholesky)
 
 
 class BAProblem(NamedTuple):
@@ -62,6 +62,25 @@ class BAProblem(NamedTuple):
     e_stereo: torch.Tensor   # [E] bool
     e_info: torch.Tensor     # [E] float32 (1/sigma^2)
     e_valid: torch.Tensor    # [E] bool
+
+
+class BAPlans(NamedTuple):
+    """The segment-sum plans of a problem's edges: by camera, by point, and
+    by (point, camera) pair for the dense Schur step's coupling G (None
+    where the solve is the CG one)."""
+
+    cam: CK.SegPlan
+    pt: CK.SegPlan
+    pair: CK.SegPlan | None
+
+
+def ba_plans(p: BAProblem, dense: bool) -> BAPlans:
+    """The plans of p's edges, built on p's device without a readback. Every
+    edge is in them, the invalid ones too (they carry zero weight), so the
+    order of a sum does not depend on the mask."""
+    C, P = p.cam_T.shape[0], p.pts.shape[0]
+    pair = CK.seg_plan(p.e_pt.long() * C + p.e_cam.long(), P * C) if dense else None
+    return BAPlans(CK.seg_plan(p.e_cam, C), CK.seg_plan(p.e_pt, P), pair)
 
 
 class BAResult(NamedTuple):
@@ -99,14 +118,40 @@ def _edge_terms(p: BAProblem, cam_T, pts, e_active, fx, fy, cx, cy, bf, robust):
     return res, Jp, Jpt, m, cost, chi2, z
 
 
-def _dense_schur_step(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam):
+def _cholesky(S: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of the reduced camera system S (not
+    checked: a factor of a system that is not positive definite gives a
+    non-finite step, which the caller zeroes). On a card, cuSOLVER's. On
+    the CPU, by diagonal blocks of _CHOL_BLOCK in a fixed order: LAPACK's
+    threaded factorization (MKL's potrf at 4 threads) returned other bits
+    for one S from one solve to the next at 384 rows (64 cameras, the
+    mapper's largest local window; not at 96 or 192), which made two runs
+    of the inline mapper part on the CPU (ROADMAP F4). A block this small
+    is factored without threads, and the panel solves and updates repeat."""
+    if S.device.type != "cpu":
+        return torch.linalg.cholesky_ex(S, check_errors=False)[0]
+    n = S.shape[0]
+    L = torch.zeros_like(S)
+    for j in range(0, n, _CHOL_BLOCK):
+        e = min(j + _CHOL_BLOCK, n)
+        L[j:e, j:e] = torch.linalg.cholesky_ex(
+            S[j:e, j:e] - L[j:e, :j] @ L[j:e, :j].T, check_errors=False)[0]
+        if e < n:
+            panel = S[e:, j:e] - L[e:, :j] @ L[j:e, :j].T
+            L[e:, j:e] = torch.linalg.solve_triangular(L[j:e, j:e], panel.T,
+                                                       upper=False).T
+    return L
+
+
+def _dense_schur_step(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs,
+                      free_cam):
     """Form the reduced camera system S = Hcc_d - W Hpp^-1 W^T (one matrix
     product over the per-point camera coupling G [P, C, 6, 3]) and solve it
     by dense Cholesky, restricted to the free cameras."""
     C = Hcc_d.shape[0]
     P = Hpp_inv.shape[0]
     # G[p, c] = sum of W_e over the edges by which c observes p
-    G = _seg_sum(W, p.e_pt * C + p.e_cam, P * C).reshape(P, C, 6, 3)
+    G = CK.seg_sum(W, plans.pair).reshape(P, C, 6, 3)
     Y = torch.einsum("pcij,pjk->pcik", G, Hpp_inv)
     # coupling[(c,i),(d,j)] = sum_{p,k} Y[p,c,i,k] G[p,d,j,k]
     Yf = Y.permute(1, 2, 0, 3).reshape(6 * C, 3 * P)
@@ -118,15 +163,14 @@ def _dense_schur_step(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam):
     # restrict to free cameras: identity rows/cols elsewhere (their rhs is 0)
     f = free_cam[:, 0].repeat_interleave(6)
     S = S * f[:, None] * f[None, :] + torch.diag(torch.where(f > 0, 1e-6, 1.0))
-    L = torch.linalg.cholesky_ex(S, check_errors=False)[0]
+    L = _cholesky(S)
     dx = torch.cholesky_solve((rhs.reshape(-1) * f)[:, None], L)[:, 0]
     return (dx * f).reshape(C, 6)
 
 
-def _lm_iteration(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
-                  robust, cg_iters: int, dense_schur: bool = False, group=None):
-    C = cam_T.shape[0]
-    P = pts.shape[0]
+def _lm_iteration(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx,
+                  fy, cx, cy, bf, robust, cg_iters: int, dense_schur: bool = False,
+                  group=None):
     res, Jp, Jpt, m, cost, _, _ = _edge_terms(
         p, cam_T, pts, e_active, fx, fy, cx, cy, bf, robust)
 
@@ -135,10 +179,10 @@ def _lm_iteration(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
     # block assembly (segment sums over the edge list)
     Jpm = Jp * m[:, None, None]
     Jptm = Jpt * m[:, None, None]
-    Hcc = _seg_sum(Jpm.transpose(1, 2) @ Jp, p.e_cam, C)
-    bc = _seg_sum(-torch.einsum("eri,er->ei", Jpm, res), p.e_cam, C)
-    Hpp = _seg_sum(Jptm.transpose(1, 2) @ Jpt, p.e_pt, P)
-    bp = _seg_sum(-torch.einsum("eri,er->ei", Jptm, res), p.e_pt, P)
+    Hcc = CK.seg_sum(Jpm.transpose(1, 2) @ Jp, plans.cam)
+    bc = CK.seg_sum(-torch.einsum("eri,er->ei", Jpm, res), plans.cam)
+    Hpp = CK.seg_sum(Jptm.transpose(1, 2) @ Jpt, plans.pt)
+    bp = CK.seg_sum(-torch.einsum("eri,er->ei", Jptm, res), plans.pt)
     W = Jpm.transpose(1, 2) @ Jpt  # [E, 6, 3]
 
     # LM damping (multiplicative on block diagonals)
@@ -149,33 +193,30 @@ def _lm_iteration(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
 
     # Schur RHS: bc - W Hpp^-1 bp
     hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
-    rhs = bc - _seg_sum(torch.einsum("eij,ej->ei", W, hb[p.e_pt]), p.e_cam, C)
+    rhs = bc - CK.seg_sum(torch.einsum("eij,ej->ei", W, hb[p.e_pt]), plans.cam)
     Hcc, rhs, cost = COL.all_reduce([Hcc, rhs, cost], group)
     Hcc_d = Hcc + lam * Hcc * eye6 + 1e-8 * eye6
     rhs = rhs * free_cam
 
     if dense_schur:
-        dx_c = _dense_schur_step(p, Hcc_d, Hpp_inv, W, rhs, free_cam)
+        dx_c = _dense_schur_step(p, plans, Hcc_d, Hpp_inv, W, rhs, free_cam)
     else:
-        dx_c = _pcg(p, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters, group)
-    return _apply_step(p, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
+        dx_c = _pcg(p, plans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters, group)
+    return _apply_step(p, plans, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
                        robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam, group)
 
 
-def _pcg(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
-         group=None):
+def _pcg(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam,
+         cg_iters: int, group=None):
     """Block-Jacobi preconditioned CG on the reduced camera system, matrix
     free: S @ x costs two edge gathers and two segment sums."""
-    C = Hcc_d.shape[0]
-    P = Hpp_inv.shape[0]
-
     def S_mv(x):
         x = x * free_cam
         u = torch.einsum("eij,ei->ej", W, x[p.e_cam])          # [E, 3] = W^T x
-        wp = torch.einsum("pij,pj->pi", Hpp_inv, _seg_sum(u, p.e_pt, P))
+        wp = torch.einsum("pij,pj->pi", Hpp_inv, CK.seg_sum(u, plans.pt))
         ze = torch.einsum("eij,ej->ei", W, wp[p.e_pt])         # [E, 6]
         y = (torch.einsum("cij,cj->ci", Hcc_d, x)
-             - COL.all_reduce([_seg_sum(ze, p.e_cam, C)], group)[0])
+             - COL.all_reduce([CK.seg_sum(ze, plans.cam)], group)[0])
         return y * free_cam
 
     eye6 = torch.eye(6, device=Hcc_d.device)
@@ -207,15 +248,15 @@ def _pcg(p: BAProblem, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
     return x
 
 
-def _apply_step(p: BAProblem, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
-                robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam, group=None):
+def _apply_step(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx, fy,
+                cx, cy, bf, robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam,
+                group=None):
     """Point back-substitution + LM accept/reject for a camera step dx_c."""
-    P = pts.shape[0]
     dx_c = torch.where(torch.isfinite(dx_c), dx_c, 0.0)
     # back-substitute points: dx_p = Hpp^-1 (bp - W^T dx_c)
-    wtx = _seg_sum(torch.einsum("eij,ei->ej", W, dx_c[p.e_cam]), p.e_pt, P)
+    wtx = CK.seg_sum(torch.einsum("eij,ei->ej", W, dx_c[p.e_cam]), plans.pt)
     dx_p = torch.einsum("pij,pj->pi", Hpp_inv, bp - wtx)
-    pt_has_edges = _seg_sum(m, p.e_pt, P) > 0
+    pt_has_edges = CK.seg_sum(m, plans.pt) > 0
     dx_p = torch.where((p.pt_valid & pt_has_edges)[:, None], dx_p, 0.0)
     dx_p = torch.where(torch.isfinite(dx_p), dx_p, 0.0)
 
@@ -273,12 +314,13 @@ def ba_solve(p: BAProblem, fx: float, fy: float, cx: float, cy: float,
     if dense and group is not None:
         raise ValueError("a sharded solve runs solver='cg': the dense Schur step "
                          "forms the reduced system from every point")
+    plans = ba_plans(p, dense)
 
     e_active = p.e_valid
     for n, robust in ((iters1, True), (iters2, False)):
         for _ in range(n):
             cam_T, pts, lam, cost = _lm_iteration(
-                p, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf, robust,
+                p, plans, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf, robust,
                 cg_iters, dense_schur=dense, group=group)
         e_active = _classify(p, cam_T, pts, fx, fy, cx, cy, bf)
     return BAResult(cam_T=cam_T, pts=pts, e_inlier=e_active, cost=cost)

@@ -14,6 +14,13 @@ ctypes:
   best / second-best reduction that every matcher applies to it, so the
   [A, B] distances never reach device memory. Plain version
   `hamming_best2_ref`.
+- `seg_sum` (csrc/seg_sum.cu): the order-fixed segment sum of float rows
+  that assembles the BA's and the pose graph's normal equations, in place
+  of `jax.ops.segment_sum` (an XLA op, no Pallas source). Each segment adds
+  its rows in increasing row order from a plan built once a problem
+  (`seg_plan`), which is the order of the plain
+  version `seg_sum_ref` (`index_add_` on the CPU): the card's sums equal
+  the CPU's bit for bit, and repeat run to run as the JAX package's do.
 - `bow_assign` (csrc/bow_assign.cu): the vocabulary-tree descent of
   orbslam2_tpu/ops/bow.py `assign_words` (an XLA program with an inline
   XOR-popcount over gathered children, no Pallas source), one warp a
@@ -38,8 +45,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,6 +82,8 @@ _KERNELS = {
                       [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR]),
     "bow_assign": (_CSRC / "bow_assign.cu", (), "bow_assign_launch",
                    [_PTR] * 6 + [_INT] * 7 + [_PTR]),
+    "seg_sum": (_CSRC / "seg_sum.cu", (), "seg_sum_launch",
+                [_PTR] * 4 + [_INT] * 3 + [_PTR]),
 }
 _launchers: dict = {}
 _load_lock = threading.Lock()
@@ -427,7 +438,67 @@ def bow_assign(node_desc: torch.Tensor, node_children: torch.Tensor,
     return words, ok, gate
 
 
-_WRAPPERS = (hamming_matrix, hamming_best2, bow_assign)
+class SegPlan(NamedTuple):
+    """The order of one segment sum, built once for an index that many sums
+    share (a BA problem's edges, a pose graph's): row i of x goes to
+    segment idx[i]; perm lists the rows segment by segment, each segment's
+    rows in increasing order (the stable sort of idx), and segment s owns
+    perm[offsets[s]:offsets[s + 1]]."""
+
+    idx: torch.Tensor      # [E] int64, each in [0, n): the plain version's index
+    perm: torch.Tensor     # [E] int32
+    offsets: torch.Tensor  # [n + 1] int32
+    n: int
+
+
+def seg_plan(idx: torch.Tensor, n: int) -> SegPlan:
+    """The plan of an index on its device, without a readback: a stable
+    sort and a search of the sorted index for each segment's first row.
+    Every index must lie in [0, n), as `index_add_` requires; an index
+    outside it is not checked here (that would read it back) and the kernel
+    leaves its row out."""
+    idx = idx.long()
+    order = torch.sort(idx, stable=True)
+    bounds = torch.arange(n + 1, dtype=torch.int64, device=idx.device)
+    offsets = torch.searchsorted(order.values, bounds)
+    return SegPlan(idx, order.indices.to(torch.int32), offsets.to(torch.int32), n)
+
+
+def seg_sum_ref(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of `seg_sum`: [n, ...] rows of zeros, then x's rows
+    added at idx (on the CPU one row after the other, in row order)."""
+    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, idx, x)
+
+
+def seg_sum(x: torch.Tensor, plan: SegPlan, out: torch.Tensor | None = None):
+    """out[s] = the sum of x[i] over the rows i with plan.idx[i] == s, added
+    in increasing i from 0.0: [E, ...] float32 or float64 -> [n, ...].
+    out: a contiguous tensor of that shape to write into."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"seg_sum: expected float32 or float64 rows, got {x.dtype}")
+    if x.dim() < 1 or x.shape[0] != plan.perm.shape[0]:
+        raise ValueError(f"seg_sum: {tuple(x.shape)} rows for a plan of "
+                         f"{plan.perm.shape[0]}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no seg_sum kernel for device {x.device}")
+    if any(t.device != x.device for t in plan[:3]):
+        raise ValueError(f"seg_sum: the plan is on {plan.perm.device}, the rows "
+                         f"on {x.device}")
+    shape = (plan.n,) + tuple(x.shape[1:])
+    (out,) = _outputs("seg_sum", out, [(shape, x.dtype)], x.device)
+    if x.device.type == "cpu":
+        return out.copy_(seg_sum_ref(x, plan.idx, plan.n))
+    d = math.prod(x.shape[1:])
+    if plan.n * d == 0:
+        return out  # nothing to compute: no launch
+    rows = x.contiguous()
+    _launch(seg_sum, "seg_sum", x.device, rows.data_ptr(), plan.perm.data_ptr(),
+            plan.offsets.data_ptr(), out.data_ptr(), plan.n, d, x.element_size())
+    return out
+
+
+_WRAPPERS = (hamming_matrix, hamming_best2, bow_assign, seg_sum)
 
 
 def reset_launch_counts() -> None:

@@ -63,7 +63,8 @@ def test_endurance_run_matches_the_jax_script():
     assert abs(port["keyframes"] - jax["keyframes"]) <= KF_TOL, (port, jax)
     assert port["kf_created_total"] - port["kf_culled"] == port["keyframes"]
     assert port["device"] == "cpu" and port["max_keyframes"] == 512
-    assert port["launches"] == {"hamming_matrix": {}, "hamming_best2": {}, "bow_assign": {}}
+    assert port["launches"] == {"hamming_matrix": {}, "hamming_best2": {}, "bow_assign": {},
+                                "seg_sum": {}}
     assert port["ate_m"] < 0.05 and jax["ate_m"] < 0.05
 
 

@@ -7,8 +7,18 @@ corrupted past TH_LOW = 50 but inside ORBdist = 100).
 
 Both tests of tests/test_reloc_rescue.py run on the port; and with JAX's own
 PnP draws replayed into the port (its key 17, split once per PnP call), the
-verdict and every binding are the same and the pose agrees within 1e-3."""
+verdict and every binding are the same and the pose agrees within 1e-3.
+
+The narrow second rescue pass (window 3, ORBdist 64) runs on the world of
+chip_smoke.narrow_rescue_world, built for both packages: 35 BoW inliers, a
+coarse pass whose decoys the pose optimization drops to 40, and the narrow
+pass that reaches the gate. Both packages call the coarse and then the
+narrow pass, relocalize, bind the same features and agree on the pose
+within 1e-3 (JAX's draws replayed, as above); with the narrow pass patched
+out, both fail."""
+import sys
 import types
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -30,6 +40,9 @@ from orbslam2_tpu_torch.map.keyframe_db import KeyFrameDatabase as TDB
 from orbslam2_tpu_torch.map.mapstate import MapState as TMap
 from orbslam2_tpu_torch.relocalization import Relocalizer as TReloc
 from test_torch_pnp import jax_minimal_sets
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 N, N_PTS = 128, 80
 JAX = types.SimpleNamespace(
@@ -138,6 +151,59 @@ def test_same_verdict_bindings_and_pose_as_jax_on_its_draws():
     # one PnP hypothesis, three pose optimizations in f32: 1e-3
     np.testing.assert_allclose(tframe.pose, jframe.pose, atol=1e-3)
     assert np.allclose(tframe.pose[:, 3], T_q[:, 3], atol=0.02)
+
+
+def narrow_world(pkg):
+    """chip_smoke.narrow_rescue_world of one package, at this file's width,
+    with a spy on the relocalizer's rescue passes: [(window, ORBdist,
+    bindings added)] in call order."""
+    kit = types.SimpleNamespace(
+        C=pkg.C, Frame=pkg.Frame, Map=pkg.Map, desc=pkg.desc,
+        db=lambda cfg, mp: pkg.DB(cfg, mp, default_vocabulary().n_words),
+        reloc=pkg.reloc)
+    reloc, frame, T_q = chip_smoke.narrow_rescue_world(kit, N)
+    passes = []
+    rescue = reloc._rescue
+
+    def spy(frame, k, window, orb_dist):
+        n = rescue(frame, k, window=window, orb_dist=orb_dist)
+        passes.append((window, orb_dist, n))
+        return n
+    reloc._rescue = spy
+    return reloc, frame, T_q, passes
+
+
+def _replay_jax_draws(treloc):
+    key = [jax.random.PRNGKey(17)]  # the JAX relocalizer's key
+
+    def replay(valid):
+        key[0], sub = jax.random.split(key[0])
+        return jax_minimal_sets(sub, valid)
+    treloc.minimal_sets = replay
+
+
+def test_narrow_rescue_pass_runs_in_both_packages():
+    jreloc, jframe, _, jpasses = narrow_world(JAX)
+    treloc, tframe, T_q, tpasses = narrow_world(PORT)
+    _replay_jax_draws(treloc)
+    assert jreloc.relocalize(jframe) and treloc.relocalize(tframe)
+    assert [p[:2] for p in jpasses] == [p[:2] for p in tpasses] == [(10.0, 100), (3.0, 64)]
+    assert jpasses == tpasses
+    np.testing.assert_array_equal(tframe.pt_idx, jframe.pt_idx)
+    np.testing.assert_allclose(tframe.pose, jframe.pose, atol=1e-3)
+    assert np.allclose(tframe.pose[:, 3], T_q[:, 3], atol=0.02)
+    (tried,) = treloc.attempts[-1]["tried"]
+    assert tried["rescue_passes"] == 2 and tried["lm_inliers"] < 50 <= tried["final_inliers"]
+
+
+@pytest.mark.parametrize("pkg", [JAX, PORT], ids=["jax", "port"])
+def test_without_the_narrow_pass_both_fail(pkg):
+    reloc, frame, _, passes = narrow_world(pkg)
+    coarse = reloc._rescue
+    reloc._rescue = lambda frame, k, window, orb_dist: (
+        coarse(frame, k, window=window, orb_dist=orb_dist) if window > 3 else 0)
+    assert not reloc.relocalize(frame)
+    assert [p[:2] for p in passes] == [(10.0, 100)]
 
 
 def test_frame_bow_is_one_sparse_vector_and_the_gate_nodes():

@@ -16,6 +16,11 @@ One more port run with async_mapping=True (the mapper on its worker
 thread; which frames become keyframes then depends on timing): at least
 90% of the frames tracked (bench.py's gate), and the map invariants of
 tests/test_async_mapping.py: no binding to a dead point, finite poses.
+
+And a second fresh port System, mapper inline, over the same frames: the
+port repeats itself as the JAX package does, so every pose of the
+trajectory and every map array (keyframe poses, point positions, kf_pt,
+the covisibility weights) equal the first run's bit for bit.
 """
 import time
 
@@ -74,6 +79,25 @@ def test_the_mapper_ran(results):
     assert len(lm.stage_ms) == lm.counters["keyframes"]
     ms = np.array([r.track_ms for r in t["system"].metrics.records])
     assert len(ms) == N_FRAMES and (ms > 0).all()
+
+
+MAP_ARRAYS = ("kf_valid", "kf_pose", "kf_pt", "pt_valid", "pt_xyz", "pt_desc")
+
+
+def test_the_port_repeats_itself_bit_for_bit(sweep, results):
+    _, frames = sweep
+    first = results[1]["system"]
+    _, cfg_t = configs()
+    again = System(cfg_t, device="cpu")
+    assert again.run_sequence(_frames(frames), pipelined=True) == N_FRAMES
+    (ts_a, poses_a), (ts_b, poses_b) = first.tracker.trajectory(), again.tracker.trajectory()
+    np.testing.assert_array_equal(ts_a, ts_b)
+    np.testing.assert_array_equal(poses_a, poses_b)
+    for name in MAP_ARRAYS:
+        np.testing.assert_array_equal(getattr(first.map, name), getattr(again.map, name),
+                                      err_msg=name)
+    np.testing.assert_array_equal(first.map.covis_matrix(), again.map.covis_matrix())
+    assert first.map.next_kf_id == again.map.next_kf_id
 
 
 def test_async_mapping(sweep):

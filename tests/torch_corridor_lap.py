@@ -34,8 +34,25 @@ ROADMAP F4's measurement:
 `--decisions FILE` writes every keyframe decision as JSON, [frame, taken,
 pose inliers, live keyframes] a frame, so that two packages' runs can be
 compared frame by frame.
+
+`--digest FILE` writes one JSON line a frame: the frame's index and a hash
+of its pose and of each of the map's arrays (the live keyframes' poses, the
+live points' positions, `kf_pt` and the covisibility weights), taken as the
+frame is recorded, with the loops closed and global BAs applied so far. Two runs' files part at the first frame, and the first
+array, where the runs differ:
+
+    python tests/torch_corridor_lap.py port piped --frames 170 --threads 4 \
+        --digest /tmp/a.jsonl
+
+With `--stages` (the port only) each line also lists, in call order, the
+hashes after each step of the frame's keyframe work: the tracker's
+`_create_keyframe` (the frame's pose as it enters and leaves) and the
+mapper's prep, point culling, new points, fuse, local BA (each
+`ba_solve`'s problem and result) and keyframe culling, so that the step
+where two runs part can be read off.
 """
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -44,6 +61,63 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+
+def map_digest(slam) -> dict:
+    """Hashes of the last frame's pose and the map's arrays, one a key."""
+    def h(a) -> str:
+        a = np.ascontiguousarray(a)
+        return hashlib.sha1(a.tobytes() + str(a.shape).encode()).hexdigest()[:16]
+
+    m = slam.map
+    frame = slam.tracker.last_frame
+    pose = getattr(frame, "pose", None)
+    with m.lock:
+        kv, pv = m.kf_valid.copy(), m.pt_valid.copy()
+        return {"pose": h(np.zeros(0) if pose is None else np.asarray(pose)),
+                "kf_pose": h(m.kf_pose[kv]), "pt_xyz": h(m.pt_xyz[pv]),
+                "kf_pt": h(m.kf_pt[kv]), "covis": h(m.covis_matrix()),
+                "loops": slam.loop_closer.n_loops_closed,
+                "gba_applied": slam.global_ba.n_applied}
+
+
+def stage_hashes(slam, log: list) -> None:
+    """Wrap the steps of the port's keyframe work so that each appends
+    (step, hashes) to `log` when it returns (`--stages`)."""
+    from orbslam2_tpu_torch import local_mapping
+
+    def h(*arrays) -> str:
+        return hashlib.sha1(b"".join(np.ascontiguousarray(a).tobytes()
+                                     for a in arrays)).hexdigest()[:12]
+
+    def map_hash() -> str:
+        m = slam.map
+        return h(m.kf_pose[m.kf_valid], m.pt_xyz[m.pt_valid], m.kf_pt[m.kf_valid])
+
+    def wrap(obj, name, before=None):
+        orig = getattr(obj, name)
+
+        def run(*a, **kw):
+            if before is not None:
+                log.append((f"{name} in", before(*a)))
+            out = orig(*a, **kw)
+            log.append((name, before(*a) if before is not None else map_hash()))
+            return out
+        setattr(obj, name, run)
+
+    tr, lm = slam.tracker, slam.local_mapper
+    wrap(tr, "_create_keyframe", lambda frame: h(np.asarray(frame.pose)))
+    for name in ("_fetch_prep", "cull_recent_points", "create_new_points",
+                 "fuse_neighbors", "local_ba", "cull_keyframes"):
+        wrap(lm, name)
+    solve = local_mapping.BA.ba_solve
+
+    def hashed_solve(prob, *a, **kw):
+        res = solve(prob, *a, **kw)
+        log.append(("ba_solve problem", h(*(t.cpu().numpy() for t in prob))))
+        log.append(("ba_solve result", h(*(t.cpu().numpy() for t in res))))
+        return res
+    local_mapping.BA.ba_solve = hashed_solve
 
 
 def main() -> int:
@@ -58,6 +132,9 @@ def main() -> int:
     ap.add_argument("--scene", choices=("corridor", "sweep"), default="corridor")
     ap.add_argument("--decisions", help="write each frame's keyframe decision here (JSON)")
     ap.add_argument("--threads", type=int, default=0, help="torch CPU threads")
+    ap.add_argument("--digest", help="write each frame's pose and map hashes here (JSON lines)")
+    ap.add_argument("--stages", action="store_true",
+                    help="with --digest: hashes after each step of the keyframe work")
     a = ap.parse_args()
 
     if a.package == "jax":
@@ -105,6 +182,20 @@ def main() -> int:
                               int(tracker.matches_inliers), int(slam.map.n_keyframes)))
             return taken
         tracker._need_new_keyframe = logged
+    if a.digest:
+        digest = open(a.digest, "w")
+        append = slam.metrics.append
+        steps: list = []
+        if a.stages:
+            stage_hashes(slam, steps)
+
+        def hashed(**kw):
+            append(**kw)
+            digest.write(json.dumps({"frame": len(slam.metrics.records) - 1,
+                                     **map_digest(slam), "stages": steps}) + "\n")
+            digest.flush()
+            steps.clear()
+        slam.metrics.append = hashed
 
     t0 = time.perf_counter()
     if a.mode.startswith("piped"):
@@ -114,6 +205,8 @@ def main() -> int:
                       for ts, d in items)
     slam.shutdown()
     seconds = time.perf_counter() - t0
+    if a.digest:
+        digest.close()
     if a.decisions:
         with open(a.decisions, "w") as f:
             json.dump(decisions, f)
