@@ -113,15 +113,15 @@ Phases, each printed on its own line:
    corridor_trajectory of radius 8, images with noise 2.5), the cells of
    tests/test_loop_closure_e2e.py, each lap in a process of its own
    (`--loop-lap SENSOR`): the monocular lap, the longest phase, starts
-   after phase 3 and runs beside phases 4 to 10, the RGB-D lap starts after
-   phase 7b and runs beside phases 9 and 10. Both laps go one frame
+   after phase 3 and runs beside phases 4 to 10, the RGB-D lap (and 8c's)
+   starts after phase 7b and runs beside phases 9 and 10. The laps go one frame
    at a time through the sensor's entry point
    (run_sequence(pipelined=False)): the block driver loses track on this
-   lap in both packages (tests/torch_corridor_lap.py; PERF.md). RGB-D
-   with the mapper on its worker (the loop closer on the worker's stream,
-   the global BA on its own thread and CUDA stream; shutdown() applies it):
-   at least 235 of 240 frames tracked, a loop closed, a global BA applied,
-   metric ATE under 3 cm; monocular with the mapper inline: at least 230
+   lap in both packages (tests/torch_corridor_lap.py; PERF.md). Both with
+   the mapper inline, as the test runs them (the global BA on its own
+   thread and CUDA stream; shutdown() applies it). RGB-D: at least 235 of
+   240 frames tracked, a loop closed, a global BA applied, metric ATE
+   under 3 cm; monocular: at least 230
    tracked, a loop closed, a global BA applied, points fused, at least one
    post-fuse loop connection in the essential graph, a pre-loop
    Sim(3)-aligned ATE over 2.5 cm (the drift that makes the lap a
@@ -135,6 +135,15 @@ Phases, each printed on its own line:
    initialization with the gate that dropped it (LapRecorder; a failed
    lap names them); `hamming_best2` must have
    been launched by the loop closer (caller "loop") on both laps;
+   8b. after the monocular lap, in its process, the lap's first 40 frames
+   through 4 fresh Systems, one frame at a time (LAP_REPEAT): the runs must
+   agree (what each recorded, and its trajectory, bit for bit);
+   8c. the RGB-D lap again with the mapper on its worker (`--loop-lap rgbd
+   --async`; the loop closer's Sim(3), pose graph and fuse on the worker's
+   CUDA stream while the tracker goes on), whose keyframes follow the
+   worker's timing (ROADMAP F4): at least 235 frames tracked,
+   `hamming_best2` and `seg_sum` launched by the loop closer, a global BA
+   launched; its ATE is printed, not gated;
 9. map checkpoints, map merging and the dataset drivers, after phase 7b,
    beside both laps:
    9a. checkpoint (rgbd-sweep-120): save_map of the System phase 7 left
@@ -218,15 +227,20 @@ line, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no "ok" line. Imports nothing
 of JAX.
 
-    python3 chip_smoke.py --lap-start SENSOR RUNS FRAMES [--deterministic]
+    python3 chip_smoke.py --loop-lap SENSOR [--async]
+
+runs one lap of phase 8 (with --async, 8c's) alone, after a build.
+
+    python3 chip_smoke.py --lap-start SENSOR RUNS FRAMES [--deterministic] [--async]
 
 is a probe that a default run never enters: the first FRAMES frames of
 phase 8's lap of SENSOR (rendered once) through RUNS fresh Systems built as
-phase 8 builds them, one line a run (the initialization frame, the map
-scale and final cost of the initialization's BA and of the first two local
-BAs, the first frame not OK and the gate that dropped it), with
---deterministic under torch.use_deterministic_algorithms(True,
-warn_only=True), printing the warnings it collects.
+phase 8 builds them (mapper inline; with --async on its worker), one line a
+run (the initialization frame, the map scale and final cost of the
+initialization's BA and of the first two local BAs, the first frame not OK
+and the gate that dropped it), with --deterministic under
+torch.use_deterministic_algorithms(True, warn_only=True), printing the
+warnings it collects.
 """
 from __future__ import annotations
 
@@ -278,13 +292,15 @@ LOOP_FRAMES, LOOP_RADIUS, LOOP_NOISE = 240, 8.0, 2.5
 # both laps and phase 9, from the start of the processes of the RGB-D lap and
 # of phase 9
 LOOP_TIMEOUT_S = 900
-# the mapper of each lap: RGB-D on its worker (the loop closer on the worker's
-# stream, the global BA on a third thread), monocular inline, where the test's
-# drift premise and improvement gate were set
-LOOP_ASYNC = {"rgbd": True, "mono": False}
 # phase 8b: (sensor, runs, frames) of the lap's start, rerun in fresh Systems
-# in the process of that sensor's lap, after the lap; the runs must agree
+# in the process of that sensor's lap, after the lap; the runs must agree. The
+# RGB-D lap's start repeats too (`--lap-start rgbd 4 24`), but beside the
+# inline lap it took the call past 600 s
 LAP_REPEAT = ("mono", 4, 40)
+# the gates of the laps with the mapper inline, as tests/test_loop_closure_e2e.py's
+# System runs them and where its gates were set; the RGB-D lap with the mapper
+# on its worker (8c) keeps the tracked gate only, beside the launches of its
+# loop path
 LOOP_GATES = {"rgbd": dict(tracked=235, ate=0.03),
               "mono": dict(tracked=230, ate=0.06, pre_loop=0.025)}
 # phase 9
@@ -557,12 +573,13 @@ def check_vocab(CK, PH, lib, mma_per_s: float) -> dict:
 
 
 def seg_sum_cases(BA, PG) -> list:
-    """(name, plan index, segments, row shape, dtype) of `seg_sum` at the
-    shapes the main path gives it, on the indices of the phase 3b problems:
-    the local cell's Hcc, Hpp, coupling G and edge count, the global cell's
-    Hcc and G (1,048,576 mostly empty segments), the pose graph's blocks
-    and b; and a ragged case (unsorted, repeated and empty segments, a
-    row of 5) in float32 and float64."""
+    """(name, plan index, segments, row shape, dtype, edge) of `seg_sum` at
+    the shapes the main path gives it, on the indices of the phase 3b
+    problems: the local cell's Hcc, Hpp, coupling G and edge count, the
+    global cell's Hcc and G (1,048,576 mostly empty segments), the pose
+    graph's blocks and b; a ragged case (unsorted, repeated and empty
+    segments, a row of 5) in float32 and float64; and the edge shapes of
+    the kernel's paths (edge true: checked, and timed warm only)."""
     cases = []
     for name, C, P, E in BA_CELLS:
         arrays, _ = BA.synthetic_problem(C, P, E, seed=0)
@@ -579,6 +596,19 @@ def seg_sum_cases(BA, PG) -> list:
     ragged = np.random.default_rng(1).integers(0, 333, 1001)
     cases += [("ragged", ragged, 400, (5,), np.float32),
               ("ragged f64", ragged, 400, (5,), np.float64)]
+    cases = [(*case, False) for case in cases]
+    # edge shapes of the long and sparse paths: every row in one segment;
+    # a segment of 5 stages and 37 rows beside an empty one; no rows at
+    # all; a float64 chain at the local Hcc's shape; 7x7 rows (13 column
+    # groups, the last of one float)
+    rng = np.random.default_rng(2)
+    stages = rng.permutation(np.repeat([0, 2, 3], [130, 5 * 128 + 37, 200]))
+    local_cam = BA.synthetic_problem(*BA_CELLS[0][1:], seed=0)[0]["e_cam"].astype(np.int64)
+    cases += [("one segment", np.zeros(65536, np.int64), 1, (6, 6), np.float32, True),
+              ("stages", stages, 4, (6, 6), np.float32, True),
+              ("no rows", np.zeros(0, np.int64), 1000, (6, 3), np.float32, True),
+              ("local Hcc f64", local_cam, BA_CELLS[0][1], (6, 6), np.float64, True),
+              ("7x7 long", rng.integers(0, 8, 4096), 8, (7, 7), np.float32, True)]
     return cases
 
 
@@ -587,12 +617,11 @@ def check_seg_sum(CK, PH, BA, PG, lib, timed: bool = True) -> dict:
     copy of the same inputs, bit for bit, each output written between guard
     rows that must stay intact; then, if `timed`, its times warm and cold,
     its empty kernel, its byte bound, the plain version on the card and
-    `index_add_` (the library call) into a zeroed output."""
+    `index_add_` (the library call) into a zeroed output; at the edge
+    shapes its warm time alone. Returns the rows of the main-path shapes."""
     rng = np.random.default_rng(0)
     rows = {}
-    # the kernel's grid: a block a 256 (segment, column) pairs, at most 8 an SM
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, idx, n, tail, dtype in seg_sum_cases(BA, PG):
+    for name, idx, n, tail, dtype, edge in seg_sum_cases(BA, PG):
         x_np = rng.standard_normal((len(idx), *tail)).astype(dtype)
         x, i_dev = torch.from_numpy(x_np).cuda(), torch.from_numpy(idx).cuda()
         plan = CK.seg_plan(i_dev, n)
@@ -605,10 +634,15 @@ def check_seg_sum(CK, PH, BA, PG, lib, timed: bool = True) -> dict:
         if not torch.equal(got, ref):
             raise AssertionError(f"seg_sum {name}: differs from the plain version on "
                                  f"the CPU (max abs err {err})")
+        path = CK.seg_sum_path(len(idx), n)
         shape = f"{len(idx)}x{'x'.join(map(str, tail)) or '1'} -> {n}"
-        if not timed:
-            print(f"phase 3f: seg_sum {name} [{shape}] equal to the CPU bit for bit, "
-                  "guard rows intact", flush=True)
+        if not timed or edge:
+            warm = ""
+            if timed:
+                dev = T.queued_ms(lambda: CK.seg_sum(x, plan, out=buf[1]))
+                warm = f"; device time (queued) warm {T.fmt_ms(dev)}"
+            print(f"phase 3f: seg_sum {name} [{shape}] {np.dtype(dtype).name} {path} path, "
+                  f"equal to the CPU bit for bit, guard rows intact{warm}", flush=True)
             continue
         d = int(np.prod(tail, dtype=np.int64))
         es = x.element_size()
@@ -619,22 +653,23 @@ def check_seg_sum(CK, PH, BA, PG, lib, timed: bool = True) -> dict:
         xs = [x.clone() for _ in range(n_sets)]
         outs = [torch.empty_like(buf[1]) for _ in range(n_sets)]
         zero = torch.zeros_like(buf[1])
-        row = dict(err=err, shape=shape,
+        blocks, threads = CK.seg_sum_grid(x, outs[0])
+        row = dict(err=err, shape=shape, path=path,
                    ms=T.time_ms(lambda: CK.seg_sum(x, plan, out=outs[0])),
                    plain_ms=T.time_ms(lambda: CK.seg_sum_ref(x, i_dev, n), reps=20),
                    dev=T.queued_ms(lambda: CK.seg_sum(x, plan, out=outs[0]), reps=10),
                    cold=T.queued_cold_ms(
                        lambda i: CK.seg_sum(xs[i], plan, out=outs[i]), n_sets),
                    plain_dev=T.queued_ms(lambda: CK.seg_sum_ref(x, i_dev, n), reps=10),
-                   floor=PH.empty_kernel_ms(lib, min(-(-n * d // 256), 8 * sms), 1, 256),
+                   floor=PH.empty_kernel_ms(lib, blocks, 1, threads),
                    library_ms=T.time_ms(lambda: zero.index_add_(0, i_dev, x)),
                    library_dev=T.queued_ms(lambda: zero.index_add_(0, i_dev, x), reps=10),
                    bound_ms=max(by_bytes, by_ops), bound_bytes_ms=by_bytes,
                    bound_ops_ms=by_ops,
                    bound_by="bytes" if by_bytes >= by_ops else "operations")
         del xs, outs
-        print(f"phase 3f: seg_sum {name} [{shape}] {np.dtype(dtype).name} equal to the "
-              f"CPU bit for bit (max_abs_err 0), guard rows intact; per call (CUDA "
+        print(f"phase 3f: seg_sum {name} [{shape}] {np.dtype(dtype).name} {path} path, "
+              f"equal to the CPU bit for bit (max_abs_err 0), guard rows intact; per call (CUDA "
               f"events, back-to-back) kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
               f"ms, index_add_ {row['library_ms']:.4f} ms; device time (queued) warm "
               f"{T.fmt_ms(row['dev'])}, cold {T.fmt_ms(row['cold'])}, plain "
@@ -1514,25 +1549,29 @@ class LapRecorder:
         return run
 
 
-def lap_system(P, scene, sensor: str):
+def lap_system(P, scene, sensor: str, async_mapping: bool):
     """A fresh System for one corridor lap, as phase 8 builds it."""
     from orbslam2_tpu_torch.utils.profile_frame import bench_config
     cfg = bench_config(scene, P.Sensor.MONOCULAR if sensor == "mono" else P.Sensor.RGBD)
-    return P.System(cfg, device="cuda", async_mapping=LOOP_ASYNC[sensor])
+    return P.System(cfg, device="cuda", async_mapping=async_mapping)
 
 
-def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str) -> dict:
+def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str,
+               async_mapping: bool) -> dict:
     """Phase 8, one lap of the corridor through the sensor's entry point
-    (track_rgbd, track_monocular), one frame at a time, with the mapper on
-    its worker or inline (LOOP_ASYNC). Records the ATE just before the
-    first loop correction and just after it (before the global BA it
-    launches lands), applies the gates of tests/test_loop_closure_e2e.py and
-    returns the lap's launches. A failure names the first frame that was not
-    OK after the initialization and the gate that dropped it (LapRecorder)."""
-    tag = f"phase 8 {sensor}"
+    (track_rgbd, track_monocular), one frame at a time, with the mapper
+    inline or on its worker. Records the ATE just before the first loop
+    correction and just after it (before the global BA it launches lands)
+    and returns the lap's launches. Inline, it applies the gates of
+    tests/test_loop_closure_e2e.py. On the worker (phase 8c), whose
+    keyframes follow the worker's timing (ROADMAP F4), the tracked gate
+    alone, and that the loop path ran there: `hamming_best2` and `seg_sum`
+    launched by the loop closer, a global BA launched; the ATE is printed,
+    not gated. A failure names the first frame that was not OK after the
+    initialization and the gate that dropped it (LapRecorder)."""
+    tag = f"phase 8c {sensor}" if async_mapping else f"phase 8 {sensor}"
     mono = sensor == "mono"
-    async_mapping = LOOP_ASYNC[sensor]
-    slam = lap_system(P, scene, sensor)
+    slam = lap_system(P, scene, sensor, async_mapping)
     recorder = LapRecorder(slam)
     lc = slam.loop_closer
     ates: dict = {}
@@ -1592,19 +1631,28 @@ def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str) -> dict:
     fails = []
     if tracked < g["tracked"]:
         fails.append(f"tracked {tracked} (gate {g['tracked']})")
-    if lc.n_loops_closed < 1 or slam.map_stats()["loops"] < 1:
+    if async_mapping:
+        # the loop closer's search, its pose graph and the global BA it
+        # launches, on the worker
+        for kernel in ("hamming_best2", "seg_sum"):
+            if launches[kernel].get("loop", 0) <= 0:
+                fails.append(f"the loop closer never launched {kernel}")
+        if gba.full_ba_idx < 1:
+            fails.append("no global BA launched")
+    elif lc.n_loops_closed < 1 or slam.map_stats()["loops"] < 1:
         fails.append("no loop closed")
-    if gba.n_applied < 1:
-        fails.append("no global BA applied")
-    if not ates["end"] < g["ate"]:
-        fails.append(f"ATE {100 * ates['end']:.3f} cm (gate {100 * g['ate']:.0f} cm)")
-    if launches["hamming_best2"].get("loop", 0) <= 0:
-        fails.append("the loop closer never launched hamming_best2")
-    # the closure's pose-graph optimization and the global BA's chunks
-    for who in ("loop", "gba"):
-        if launches["seg_sum"].get(who, 0) <= 0:
-            fails.append(f"seg_sum never launched by {who}")
-    if mono:
+    if not async_mapping:
+        if gba.n_applied < 1:
+            fails.append("no global BA applied")
+        if not ates["end"] < g["ate"]:
+            fails.append(f"ATE {100 * ates['end']:.3f} cm (gate {100 * g['ate']:.0f} cm)")
+        if launches["hamming_best2"].get("loop", 0) <= 0:
+            fails.append("the loop closer never launched hamming_best2")
+        # the closure's pose-graph optimization and the global BA's chunks
+        for who in ("loop", "gba"):
+            if launches["seg_sum"].get(who, 0) <= 0:
+                fails.append(f"seg_sum never launched by {who}")
+    if mono and not async_mapping:
         pgo = lc.last_pgo_edges
         if lc.n_loop_fused <= 0 or pgo.get("n_loop_conn", 0) < 1:
             fails.append(f"fused {lc.n_loop_fused}, essential graph {pgo}")
@@ -1618,11 +1666,12 @@ def check_loop(P, CK, synth, evaluation, scene, gt, items, sensor: str) -> dict:
     return dict(launches=launches)
 
 
-def loop_lap(sensor: str) -> int:
+def loop_lap(sensor: str, async_mapping: bool) -> int:
     """Phase 8's lap of one sensor in a process of its own (`--loop-lap
-    SENSOR`), beside the phases of main(). The kernels and the host
-    library are loaded from build/, where main() built them. The last line
-    is the lap's kernel launches as JSON."""
+    SENSOR [--async]`), beside the phases of main(), then, inline, phase 8b
+    for the sensor of LAP_REPEAT on the frames the lap rendered. The
+    kernels and the host library are loaded from build/, where main() built
+    them. The last line is the lap's kernel launches as JSON."""
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import native
     from orbslam2_tpu_torch.io import synth
@@ -1635,12 +1684,16 @@ def loop_lap(sensor: str) -> int:
         raise RuntimeError("host map library (native/mapops.cpp) did not load")
     corridor = synth.make_corridor(seed=3)
     lap = synth.corridor_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS)
-    res = check_loop(P, CK, synth, evaluation, corridor, lap,
-                     render_corridor(synth, corridor, lap), sensor)
-    if sensor == LAP_REPEAT[0]:
+    t0 = time.perf_counter()
+    items = render_corridor(synth, corridor, lap)
+    print(f"phase 8 {sensor}: {len(items)} frames rendered in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    res = check_loop(P, CK, synth, evaluation, corridor, lap, items, sensor, async_mapping)
+    if sensor == LAP_REPEAT[0] and not async_mapping:
         # the lap's start in fresh Systems, after the lap: every run the same
         t0 = time.perf_counter()
-        if lap_start(*LAP_REPEAT, deterministic=False) != 0:
+        if lap_start(*LAP_REPEAT, deterministic=False, async_mapping=False,
+                     items=items) != 0:
             raise AssertionError("phase 8b: the lap-start runs differ")
         print(f"phase 8b: {LAP_REPEAT[1]} lap-start runs of {LAP_REPEAT[2]} frames in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1648,11 +1701,14 @@ def loop_lap(sensor: str) -> int:
     return 0
 
 
-def lap_start(sensor: str, runs: int, frames: int, deterministic: bool) -> int:
+def lap_start(sensor: str, runs: int, frames: int, deterministic: bool,
+              async_mapping: bool, items: list | None = None) -> int:
     """The start of phase 8's lap, `runs` times (`--lap-start SENSOR RUNS
-    FRAMES [--deterministic]`; a default run never enters it): the lap's
-    first `frames` frames, rendered once as phase 8 renders them, through
-    fresh Systems built as phase 8 builds them, one frame at a time. One
+    FRAMES [--deterministic] [--async]`; phase 8b's after its lap): the
+    lap's first `frames` frames (of `items`, the lap's rendered frames,
+    else rendered once as phase 8 renders them), through fresh Systems
+    built as phase 8 builds them, with the mapper inline or (`--async`) on
+    its worker, one frame at a time. One
     line a run: the initialization frame, the map scale and final cost of
     the first two local BAs, the first frame not OK after the
     initialization and the gate that dropped it (LapRecorder). With
@@ -1678,7 +1734,8 @@ def lap_start(sensor: str, runs: int, frames: int, deterministic: bool) -> int:
         raise RuntimeError("host map library (native/mapops.cpp) did not load")
     corridor = synth.make_corridor(seed=3)
     lap = synth.corridor_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS)
-    items = render_corridor(synth, corridor, lap[:frames])
+    items = (render_corridor(synth, corridor, lap[:frames]) if items is None
+             else items[:frames])
     mode = "deterministic algorithms" if deterministic else "default algorithms"
     torch.use_deterministic_algorithms(deterministic, warn_only=True)
     caught: Counter = Counter()
@@ -1687,7 +1744,7 @@ def lap_start(sensor: str, runs: int, frames: int, deterministic: bool) -> int:
     for run in range(runs):
         with warnings.catch_warnings(record=True) as got:
             warnings.simplefilter("always")
-            slam = lap_system(P, corridor, sensor)
+            slam = lap_system(P, corridor, sensor, async_mapping)
             rec = LapRecorder(slam, gt=lap)
             t0 = time.perf_counter()
             try:
@@ -2484,14 +2541,17 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--kernel-checks"]:
         return kernel_checks()
-    if sys.argv[1:2] == ["--loop-lap"] and sys.argv[2:] in (["rgbd"], ["mono"]):
-        return loop_lap(sys.argv[2])
+    if sys.argv[1:2] == ["--loop-lap"] and sys.argv[2:3] in (["rgbd"], ["mono"]) \
+            and sys.argv[3:] in ([], ["--async"]):
+        return loop_lap(sys.argv[2], async_mapping=sys.argv[3:] == ["--async"])
     if sys.argv[1:2] == ["--gba-rank"] and len(sys.argv) == 5:
         return gba_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
-    if sys.argv[1:2] == ["--lap-start"] and len(sys.argv) in (5, 6) \
-            and sys.argv[2] in LOOP_ASYNC and sys.argv[5:] in ([], ["--deterministic"]):
+    if sys.argv[1:2] == ["--lap-start"] and len(sys.argv) >= 5 \
+            and sys.argv[2] in LOOP_GATES \
+            and set(sys.argv[5:]) <= {"--deterministic", "--async"}:
         return lap_start(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
-                         sys.argv[5:] == ["--deterministic"])
+                         deterministic="--deterministic" in sys.argv[5:],
+                         async_mapping="--async" in sys.argv[5:])
     import orbslam2_tpu_torch as P
     from orbslam2_tpu_torch import _build, native
     from orbslam2_tpu_torch.io import synth
@@ -2564,20 +2624,22 @@ def main() -> int:
     bow = check_bow_assign(PH, lib, twotrip, voc, extracted)
     check_pnp(PNP)
     seg_per_call = check_ba(BA, PG, CK)
-    seg = check_seg_sum(CK, PH, BA, PG, lib)
     lap_seconds("3")
+    seg = check_seg_sum(CK, PH, BA, PG, lib)
+    lap_seconds("3f")
 
     # phase 8's monocular lap, the longest phase, in a process of its own
-    # beside phases 4 to 10; the RGB-D lap joins it after phase 7
+    # beside phases 4 to 10; the RGB-D laps, inline (8) and with the mapper
+    # on its worker (8c), join it after phase 7, each in its own process
     import subprocess
     import tempfile
     laps, dry = {}, {}
 
-    def start_lap(sensor: str) -> None:
+    def start_lap(*argv: str) -> None:
         out = tempfile.TemporaryFile(mode="w+")
-        laps[sensor] = (subprocess.Popen([sys.executable, __file__, "--loop-lap", sensor],
-                                         stdout=out, stderr=subprocess.STDOUT, text=True),
-                        out, time.perf_counter() + LOOP_TIMEOUT_S)
+        laps[argv] = (subprocess.Popen([sys.executable, __file__, "--loop-lap", *argv],
+                                       stdout=out, stderr=subprocess.STDOUT, text=True),
+                      out, time.perf_counter() + LOOP_TIMEOUT_S)
 
     start_lap("mono")
     mono_orbit = synth.orbit_trajectory(MONO_FRAMES)
@@ -2650,6 +2712,7 @@ def main() -> int:
     from pathlib import Path
     try:
         start_lap("rgbd")
+        start_lap("rgbd", "--async")
         with tempfile.TemporaryDirectory() as tmp:
             work = Path(tmp)
             p9 = [check_checkpoint(P, CK, synth, scene, sweep, piped[0]["system"], work)]
@@ -2685,7 +2748,7 @@ def main() -> int:
               f"{HOST_OPS_KEYFRAMES}, ms, native library and numpy fallback:", flush=True)
         bench_host_ops.main(keyframes=HOST_OPS_KEYFRAMES)
         lap_seconds("3e host ops")
-        loops = [finish_lap(*laps[sensor]) for sensor in ("mono", "rgbd")]
+        loops = [finish_lap(*lap) for lap in laps.values()]
     finally:
         for proc, out, *_ in [*laps.values(), *dry.values()]:
             if proc.poll() is None:
@@ -2780,8 +2843,10 @@ def main() -> int:
     entry_d["also_replaces"] = "orbslam2_tpu/ops/pose_graph.py:74"
     entry_d["launches_per_call"] = seg_per_call
     entry_d["library_device_ms"] = row_d["library_dev"]
+    entry_d["path"] = row_d["path"]
     entry_d["other_shapes"] = [
-        {"case": name, "shape": r["shape"], "ms": r["ms"], "device_ms": r["dev"],
+        {"case": name, "shape": r["shape"], "path": r["path"], "ms": r["ms"],
+         "device_ms": r["dev"],
          "cold_device_ms": r["cold"], "floor_ms": r["floor"], "plain_ms": r["plain_ms"],
          "plain_device_ms": r["plain_dev"], "library_ms": r["library_ms"],
          "library_device_ms": r["library_dev"], "bound_ms": r["bound_ms"],

@@ -10,6 +10,7 @@ trajectories.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -85,6 +86,10 @@ def render(scene: SynthScene, Tcw: np.ndarray, noise=1.5, seed=0) -> np.ndarray:
     return np.clip(img, 0, 255)
 
 
+# each thread's last RoomScene.ray_depths: (scene, pose bytes, result)
+_LAST_RAYS = threading.local()
+
+
 @dataclass
 class RoomScene:
     """Textured 3-plane room rendered by exact ray-plane intersection with
@@ -99,7 +104,19 @@ class RoomScene:
     height: int
 
     def ray_depths(self, Tcw: np.ndarray):
-        """Per-pixel hit (plane index, depth) for a camera pose."""
+        """Per-pixel hit (plane index, depth) for a camera pose. Each thread
+        keeps its last result, so an image and the depth map of one pose
+        (render_room, then depth_room) cast the rays once; the callers only
+        read the arrays."""
+        key = np.asarray(Tcw).tobytes()
+        last = getattr(_LAST_RAYS, "hit", None)
+        if last is not None and last[0] is self and last[1] == key:
+            return last[2]
+        hit = self._cast_rays(Tcw)
+        _LAST_RAYS.hit = (self, key, hit)
+        return hit
+
+    def _cast_rays(self, Tcw: np.ndarray):
         R, t = Tcw[:3, :3], Tcw[:3, 3]
         Rwc = R.T
         C = -Rwc @ t

@@ -21,6 +21,8 @@ ctypes:
   (`seg_plan`), which is the order of the plain
   version `seg_sum_ref` (`index_add_` on the CPU): the card's sums equal
   the CPU's bit for bit, and repeat run to run as the JAX package's do.
+  Three paths, chosen from the shapes (`seg_sum_path`), bring the rows to
+  the adder by other routes and add in that one order.
 - `bow_assign` (csrc/bow_assign.cu): the vocabulary-tree descent of
   orbslam2_tpu/ops/bow.py `assign_words` (an XLA program with an inline
   XOR-popcount over gathered children, no Pallas source), one warp a
@@ -83,7 +85,7 @@ _KERNELS = {
     "bow_assign": (_CSRC / "bow_assign.cu", (), "bow_assign_launch",
                    [_PTR] * 6 + [_INT] * 7 + [_PTR]),
     "seg_sum": (_CSRC / "seg_sum.cu", (), "seg_sum_launch",
-                [_PTR] * 4 + [_INT] * 3 + [_PTR]),
+                [_PTR] * 5 + [_INT] * 5 + [_PTR]),
 }
 _launchers: dict = {}
 _load_lock = threading.Lock()
@@ -103,16 +105,21 @@ def _library(name: str):
     return build_library(name, [source], "nvcc", headers=headers)
 
 
-def _launcher(name: str):
-    """The launch function of library `name`, built and loaded on first use."""
+def _function(name: str, fn_name: str, argtypes: list):
+    """Function `fn_name` of library `name` (returning an int), built and
+    loaded on first use."""
     with _load_lock:
-        if name not in _launchers:
-            _, _, fn_name, argtypes = _KERNELS[name]
+        if (name, fn_name) not in _launchers:
             fn = getattr(ctypes.CDLL(str(_library(name))), fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _launchers[name] = fn
-        return _launchers[name]
+            _launchers[name, fn_name] = fn
+        return _launchers[name, fn_name]
+
+
+def _launcher(name: str):
+    """The launch function of library `name`."""
+    return _function(name, *_KERNELS[name][2:])
 
 
 def build_kernels() -> None:
@@ -442,12 +449,14 @@ class SegPlan(NamedTuple):
     """The order of one segment sum, built once for an index that many sums
     share (a BA problem's edges, a pose graph's): row i of x goes to
     segment idx[i]; perm lists the rows segment by segment, each segment's
-    rows in increasing order (the stable sort of idx), and segment s owns
-    perm[offsets[s]:offsets[s + 1]]."""
+    rows in increasing order (the stable sort of idx), segment s owns
+    perm[offsets[s]:offsets[s + 1]], and seg[k] is the segment of row
+    perm[k] (the sorted index, for the sparse path)."""
 
     idx: torch.Tensor      # [E] int64, each in [0, n): the plain version's index
     perm: torch.Tensor     # [E] int32
     offsets: torch.Tensor  # [n + 1] int32
+    seg: torch.Tensor      # [E] int32, non-decreasing
     n: int
 
 
@@ -456,12 +465,29 @@ def seg_plan(idx: torch.Tensor, n: int) -> SegPlan:
     sort and a search of the sorted index for each segment's first row.
     Every index must lie in [0, n), as `index_add_` requires; an index
     outside it is not checked here (that would read it back) and the kernel
-    leaves its row out."""
+    leaves its row out (`seg` holds it as -1 or n)."""
     idx = idx.long()
     order = torch.sort(idx, stable=True)
     bounds = torch.arange(n + 1, dtype=torch.int64, device=idx.device)
     offsets = torch.searchsorted(order.values, bounds)
-    return SegPlan(idx, order.indices.to(torch.int32), offsets.to(torch.int32), n)
+    return SegPlan(idx, order.indices.to(torch.int32), offsets.to(torch.int32),
+                   order.values.clamp(-1, n).to(torch.int32), n)
+
+
+# the kernel's paths, in csrc/seg_sum.cu's numbering
+SEG_PATHS = ("short", "sparse", "long")
+LONG_ROWS = 64  # rows a segment on average from which a sum takes the long path
+
+
+def seg_sum_path(rows: int, n: int) -> str:
+    """The kernel's path for `rows` rows in `n` segments, from the shapes
+    alone: "sparse" when segments outnumber rows (most are empty: zero the
+    output, then sum from each segment's first row), "long" from LONG_ROWS
+    rows a segment on average (a block a segment, the rows staged in shared
+    memory), else "short" (a thread a segment and column)."""
+    if rows < n:
+        return "sparse"
+    return "long" if rows >= LONG_ROWS * n else "short"
 
 
 def seg_sum_ref(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -482,20 +508,43 @@ def seg_sum(x: torch.Tensor, plan: SegPlan, out: torch.Tensor | None = None):
                          f"{plan.perm.shape[0]}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no seg_sum kernel for device {x.device}")
-    if any(t.device != x.device for t in plan[:3]):
+    if any(t.device != x.device for t in plan[:4]):
         raise ValueError(f"seg_sum: the plan is on {plan.perm.device}, the rows "
                          f"on {x.device}")
     shape = (plan.n,) + tuple(x.shape[1:])
     (out,) = _outputs("seg_sum", out, [(shape, x.dtype)], x.device)
     if x.device.type == "cpu":
         return out.copy_(seg_sum_ref(x, plan.idx, plan.n))
+    return _seg_sum_launch(x, plan, out, seg_sum_path(x.shape[0], plan.n))
+
+
+def _seg_sum_launch(x: torch.Tensor, plan: SegPlan, out: torch.Tensor, path: str):
+    """The kernel's launch on `path` (any path sums any shape; `seg_sum`
+    takes the one `seg_sum_path` chooses, utils/probe_seg_sum.py forces
+    each), for rows, plan and out on the card as `seg_sum` checks them."""
     d = math.prod(x.shape[1:])
     if plan.n * d == 0:
         return out  # nothing to compute: no launch
     rows = x.contiguous()
     _launch(seg_sum, "seg_sum", x.device, rows.data_ptr(), plan.perm.data_ptr(),
-            plan.offsets.data_ptr(), out.data_ptr(), plan.n, d, x.element_size())
+            plan.offsets.data_ptr(), plan.seg.data_ptr(), out.data_ptr(), plan.n, d,
+            x.shape[0], x.element_size(), SEG_PATHS.index(path))
     return out
+
+
+def seg_sum_grid(x: torch.Tensor, out: torch.Tensor) -> tuple[int, int]:
+    """(blocks, threads a block) of the launch `seg_sum(x, plan, out=out)`
+    makes on the card, from the kernel's own grid arithmetic
+    (csrc/seg_sum.cu `seg_sum_grid`); (0, threads) where it launches
+    nothing."""
+    blocks, threads = ctypes.c_int64(), ctypes.c_int()
+    fn = _function("seg_sum", "seg_sum_grid", [_PTR] + [_INT] * 4 + [_PTR] * 2)
+    path = seg_sum_path(x.shape[0], out.shape[0])
+    err = fn(out.data_ptr(), out.shape[0], math.prod(x.shape[1:]), x.element_size(),
+             SEG_PATHS.index(path), ctypes.byref(blocks), ctypes.byref(threads))
+    if err != 0:
+        raise ValueError(f"seg_sum_grid: CUDA error {err}")
+    return blocks.value, threads.value
 
 
 _WRAPPERS = (hamming_matrix, hamming_best2, bow_assign, seg_sum)

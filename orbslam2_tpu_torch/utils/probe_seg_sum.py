@@ -5,12 +5,15 @@ CUDA device.
 
 1. What ptxas makes of csrc/seg_sum.cu (registers, spills: `nvcc
    -Xptxas -v`).
-2. `seg_sum` at the local BA's Hcc, the global BA's Hcc and the global
-   BA's coupling G: device time warm (CUDA events around calls queued
-   behind a spin kernel), and the host's cost a call against its plain
-   version (`zeros` + `index_add_`), host clock over back-to-back calls
-   without a synchronize; `ba.ba_plans` (three stable sorts and searches)
-   with one.
+2. `seg_sum` at each BA cell's sums (Hcc and bc by camera, the coupling
+   G, Hpp and bp by point) and the pose graph's (the 7x7 blocks and b):
+   device time warm (CUDA events around calls queued behind a spin kernel)
+   on each of the kernel's three paths, each checked bit for bit against
+   the plain version, beside `index_add_` into a zeroed output and the
+   plain version (`zeros` + `index_add_`), and for the sparse shapes the
+   path's zero fill alone beside `Tensor.zero_`; the host's cost a call against
+   the plain version's, host clock over back-to-back calls without a
+   synchronize; `ba.ba_plans` (three stable sorts and searches) with one.
 3. The solves of chip_smoke.py's phase 3b: `ba_solve` at the local and
    global BA cells and `optimize_pose_graph` at the 2,821-edge cell, each
    version of the package in a process of its own. A line a solve: device
@@ -73,27 +76,51 @@ def kernel_times() -> None:
     """Step 2."""
     from orbslam2_tpu_torch.ops import ba as BA
     from orbslam2_tpu_torch.ops import cuda_kernels as CK
+    from orbslam2_tpu_torch.ops import pose_graph as PG
     from orbslam2_tpu_torch.utils.cuda_timing import fmt_ms, queued_ms
     CK.build_kernels()
     rng = np.random.default_rng(0)
+    cases = []
     for name, C, P, E in CELLS:
         arrays, _ = BA.synthetic_problem(C, P, E, seed=0)
         prob = BA.problem_from_numpy(arrays, torch.device("cuda"))
         e_cam, e_pt = prob.e_cam.long(), prob.e_pt.long()
-        cases = [("Hcc", e_cam, C, (6, 6))]
-        if name == "global":
-            cases.append(("G", e_pt * C + e_cam, P * C, (6, 3)))
-        for what, idx, n, tail in cases:
-            x = torch.from_numpy(rng.standard_normal((E, *tail)).astype(np.float32)).cuda()
-            plan = CK.seg_plan(idx, n)
-            out = torch.empty((n, *tail), device="cuda")
-            warm = queued_ms(lambda: CK.seg_sum(x, plan, out=out))
-            if not torch.equal(out.cpu(), CK.seg_sum_ref(x.cpu(), idx.cpu(), n)):
-                raise AssertionError(f"{name} {what}: seg_sum differs from its plain version")
-            print(f"{name} {what} [{E}x{'x'.join(map(str, tail))} -> {n}]: device warm "
-                  f"{fmt_ms(warm)}; host us a call, back-to-back without a sync: seg_sum "
-                  f"{host_us(lambda: CK.seg_sum(x, plan)):.1f}, plain "
-                  f"{host_us(lambda: CK.seg_sum_ref(x, idx, n)):.1f}", flush=True)
+        cases += [(f"{name} Hcc", e_cam, C, (6, 6)), (f"{name} bc", e_cam, C, (6,)),
+                  (f"{name} G", e_pt * C + e_cam, P * C, (6, 3)),
+                  (f"{name} Hpp", e_pt, P, (3, 3)), (f"{name} bp", e_pt, P, (3,))]
+    pgo = PG.synthetic_problem(*PGO_CELL, seed=0)
+    e_i = torch.from_numpy(np.asarray(pgo[4])).cuda().long()
+    cases += [("pgo Hd", e_i, PGO_CELL[0], (7, 7)), ("pgo b", e_i, PGO_CELL[0], (7,))]
+    for what, idx, n, tail in cases:
+        E = idx.shape[0]
+        x = torch.from_numpy(rng.standard_normal((E, *tail)).astype(np.float32)).cuda()
+        plan = CK.seg_plan(idx, n)
+        out = torch.empty((n, *tail), device="cuda")
+        zero = torch.zeros_like(out)
+        want = CK.seg_sum_ref(x.cpu(), idx.cpu(), n)
+        times = []
+        for path in CK.SEG_PATHS:
+            CK._seg_sum_launch(x, plan, out, path)
+            if not torch.equal(out.cpu(), want):
+                raise AssertionError(f"{what}: the {path} path differs from the plain version")
+            times.append(f"{path} {fmt_ms(queued_ms(lambda: CK._seg_sum_launch(x, plan, out, path)))}")
+        print(f"{what} [{E}x{'x'.join(map(str, tail)) or '1'} -> {n}], chosen "
+              f"{CK.seg_sum_path(E, n)}: device warm by path: {', '.join(times)}; "
+              f"index_add_ {fmt_ms(queued_ms(lambda: zero.index_add_(0, idx, x)))}, plain "
+              f"{fmt_ms(queued_ms(lambda: CK.seg_sum_ref(x, idx, n)))}; host us a call, "
+              f"back-to-back without a sync: seg_sum "
+              f"{host_us(lambda: CK.seg_sum(x, plan)):.1f}, plain "
+              f"{host_us(lambda: CK.seg_sum_ref(x, idx, n)):.1f}", flush=True)
+        if CK.seg_sum_path(E, n) == "sparse":
+            # the sparse path's first pass alone (no rows), and PyTorch's fill
+            none = CK.seg_plan(torch.empty(0, dtype=torch.int64, device="cuda"), n)
+            x0 = x[:0]
+            print(f"{what}: the sparse path's zero fill alone "
+                  f"{fmt_ms(queued_ms(lambda: CK._seg_sum_launch(x0, none, out, 'sparse')))}"
+                  f", Tensor.zero_ {fmt_ms(queued_ms(out.zero_))}", flush=True)
+    for name, C, P, E in CELLS:
+        arrays, _ = BA.synthetic_problem(C, P, E, seed=0)
+        prob = BA.problem_from_numpy(arrays, torch.device("cuda"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):

@@ -30,8 +30,7 @@ def test_recorder_names_the_lost_frame_and_its_gate():
     items.append((N_TRACKED / 30.0, {"image": np.full((scene.height, scene.width), 128.0,
                                                       np.float32)}))
     solve = local_mapping.BA.ba_solve
-    slam = System(bench_config(scene, Sensor.MONOCULAR), device="cpu",
-                  async_mapping=chip_smoke.LOOP_ASYNC["mono"])
+    slam = System(bench_config(scene, Sensor.MONOCULAR), device="cpu", async_mapping=False)
     rec = chip_smoke.LapRecorder(slam, gt=gt)
     try:
         tracked = slam.run_sequence(iter(items), pipelined=False)

@@ -7,8 +7,9 @@ Tolerances:
   in orders of their own, so each output may differ by the float32
   reordering bound, rows x 2^-23 x the sum of the segment's |x|.
 - Everything else is exact: the plain version against an explicit
-  in-order loop (the order the kernel adds in, read from the plan), the
-  plans against numpy's stable argsort, and two solves on the same inputs
+  in-order loop (the order the kernel adds in, read from the plan, from
+  where each of the kernel's paths starts a segment), the plans against
+  numpy's stable argsort and sort, and two solves on the same inputs
   against each other, bit for bit; but for the
   CPU's blocked Cholesky of the dense Schur step, held to S and to
   LAPACK's factor within float32 rounding.
@@ -38,17 +39,31 @@ def _index(rng, E, n):
     return rng.integers(0, n, E)
 
 
-def in_order(x: np.ndarray, plan: CK.SegPlan) -> np.ndarray:
+def in_order(x: np.ndarray, plan: CK.SegPlan, first=None) -> np.ndarray:
     """The kernel's sum, one segment at a time from the plan: 0.0, then the
-    segment's rows added one by one in the plan's order, in x's type."""
+    segment's rows added one by one in the plan's order, in x's type, from
+    first[s] (by default the segment's first row, offsets[s]) to its end."""
     perm, offsets = plan.perm.numpy(), plan.offsets.numpy()
+    first = offsets[:-1] if first is None else first
     out = np.zeros((plan.n,) + x.shape[1:], x.dtype)
     for s in range(plan.n):
         acc = np.zeros(x.shape[1:], x.dtype)
-        for k in range(offsets[s], offsets[s + 1]):
+        for k in range(first[s], offsets[s + 1]):
             acc = acc + x[perm[k]]
         out[s] = acc
     return out
+
+
+def sparse_first(plan: CK.SegPlan) -> np.ndarray:
+    """Where the sparse path starts each segment: at the sorted row whose
+    segment differs from the row before's (and lies in [0, n)); a segment
+    no such row starts stays 0.0."""
+    seg, offsets = plan.seg.numpy(), plan.offsets.numpy()
+    first = offsets[1:].copy()
+    for k, s in enumerate(seg):
+        if 0 <= s < plan.n and (k == 0 or seg[k - 1] != s):
+            first[s] = k
+    return first
 
 
 @pytest.mark.parametrize("tail", WIDTHS)
@@ -120,6 +135,62 @@ def test_plan_is_numpys_stable_argsort():
         np.testing.assert_array_equal(plan.offsets.numpy(),
                                       np.searchsorted(idx[perm], np.arange(n + 1)))
         assert torch.equal(plan.idx, torch.from_numpy(idx))
+
+
+def test_plan_seg_is_numpys_sort():
+    """The plan's sorted segment ids (the sparse path's) are numpy's sort of
+    the index, as int32; an index outside [0, n) is held as -1 or n."""
+    rng = np.random.default_rng(3)
+    for E, n in [(8192, 16), (65536, 128 * 8192), (2821, 421), (1, 1), (0, 4)]:
+        idx = _index(rng, E, n)
+        plan = CK.seg_plan(torch.from_numpy(idx), n)
+        assert plan.seg.dtype == torch.int32 and plan.seg.shape == (E,)
+        np.testing.assert_array_equal(plan.seg.numpy(), np.sort(idx))
+        np.testing.assert_array_equal(plan.seg.numpy(), idx[plan.perm.numpy()])
+    plan = CK.seg_plan(torch.tensor([2, -3, 9, 0, 2]), 3)
+    np.testing.assert_array_equal(plan.seg.numpy(), [-1, 0, 2, 2, 3])
+
+
+@pytest.mark.parametrize("E,n,path", [
+    (8192, 16, "long"), (65536, 128, "long"), (65536, 1, "long"), (64, 1, "long"),
+    (63, 1, "short"), (8192, 2048, "short"), (8192, 1024, "short"),
+    (2821, 421, "short"), (1001, 400, "short"), (4, 4, "short"),
+    (8192, 32768, "sparse"), (65536, 1 << 20, "sparse"), (0, 5, "sparse")])
+def test_path_choice_depends_on_shapes_only(E, n, path):
+    """The path comes from (rows, segments) alone: the callers' shapes (by
+    camera 512 rows a segment, by point 4 or 8, the pose graph about 7,
+    the coupling G at most 0.25) and the edges. A plan built on the meta
+    device, which holds no values, gives the same path: neither the plan
+    nor the choice reads the index back."""
+    assert CK.seg_sum_path(E, n) == path
+    plan = CK.seg_plan(torch.empty(E, dtype=torch.int64, device="meta"), n)
+    assert all(t.device.type == "meta" for t in plan[:4])
+    x = torch.empty((E, 6, 6), device="meta")
+    assert CK.seg_sum_path(x.shape[0], plan.n) == path
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("path", CK.SEG_PATHS)
+def test_each_path_adds_in_the_plain_versions_order(path, dtype):
+    """Each path's add order (in_order from where the path starts each
+    segment) equals seg_sum_ref (index_add_ on the CPU) bit for bit,
+    whichever path the shapes would choose: ragged segments, empty
+    segments, one segment holding every row, no rows at all, and the
+    widths of the port's sums."""
+    rng = np.random.default_rng(len(path) + dtype().itemsize)
+    ragged = np.concatenate([np.full(409, 2), rng.integers(0, 9, 300), np.full(5, 7)])
+    rng.shuffle(ragged)
+    for tail, idx, n in [((5,), ragged, 12), ((6, 6), np.zeros(300, np.int64), 1),
+                         ((7, 7), rng.integers(0, 3, 270), 3), ((), rng.integers(0, 40, 25), 40),
+                         ((6, 3), np.zeros(0, np.int64), 6), ((3,), rng.integers(0, 2, 140), 2)]:
+        x = _rows(rng, len(idx), tail, dtype)
+        plan = CK.seg_plan(torch.from_numpy(idx), n)
+        want = CK.seg_sum_ref(torch.from_numpy(x), plan.idx, n).numpy()
+        # the short and long paths walk a segment from its first row (the
+        # long path stages the rows in shared memory, which changes no add)
+        got = in_order(x, plan, sparse_first(plan) if path == "sparse" else None)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
 def test_index_outside_the_segments_raises_on_the_cpu():
@@ -242,13 +313,30 @@ def test_cuda_seg_sum_matches_the_cpu_bit_for_bit():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(7)
+    paths = set()
     for tail, E, n in [((6, 6), 8192, 16), ((6, 3), 8192, 32768), ((7, 7), 2821, 300),
-                       ((), 333, 1000), ((3,), 0, 4)]:
+                       ((), 333, 1000), ((3,), 0, 4), ((6, 6), 65536, 1),
+                       ((7, 7), 5 * 700, 5), ((6,), 8192, 16), ((5,), 777, 3),
+                       ((3, 3), 8192, 2048)]:
         for dtype in (np.float32, np.float64):
             x, idx = _rows(rng, E, tail, dtype), _index(rng, E, n)
             plan = CK.seg_plan(torch.from_numpy(idx).cuda(), n)
-            before = CK.seg_sum.launches
-            got = CK.seg_sum(torch.from_numpy(x).cuda(), plan).cpu()
-            assert CK.seg_sum.launches == before + 1
+            paths.add(CK.seg_sum_path(E, n))
             want = CK.seg_sum_ref(torch.from_numpy(x), torch.from_numpy(idx), n)
-            assert torch.equal(got, want)
+            # the rows and the output at their allocations' start and one
+            # element past it (the long path's 16-byte copies, then 4- or
+            # 8-byte ones; the sparse path's 16-byte stores, then its
+            # elements before the first boundary), the output between
+            # sentinels
+            wide = torch.from_numpy(_rows(rng, x.size + 1, (), dtype)).cuda()
+            for start in (0, 1):
+                rows = wide[start:start + x.size].view(x.shape).copy_(torch.from_numpy(x))
+                sink = torch.full((want.numel() + 9,), 7.0, dtype=rows.dtype, device="cuda")
+                out = sink[start:start + want.numel()].view(want.shape)
+                before = CK.seg_sum.launches
+                got = CK.seg_sum(rows, plan, out=out).cpu()
+                assert CK.seg_sum.launches == before + (want.numel() > 0)
+                assert torch.equal(got, want)
+                rest = torch.cat([sink[:start], sink[start + want.numel():]])
+                assert bool((rest == 7.0).all())
+    assert paths == set(CK.SEG_PATHS)

@@ -66,3 +66,22 @@ def test_waypoint_trajectory():
     for kw in (dict(), dict(smooth=11, y_wobble=0.0)):
         _same(jsynth.waypoint_trajectory(wp, 90, **kw),
               tsynth.waypoint_trajectory(wp, 90, **kw))
+
+
+def test_room_renders_equal_jax_in_any_order_of_poses():
+    """The port keeps each thread's last ray cast (an image and its depth
+    map of one pose cast the rays once): renders and depth maps of poses
+    taken in any order, repeated, and of a second scene between them, equal
+    the JAX package's, which casts every time."""
+    kw = dict(seed=3, width=64, height=48, fx=48.0, fy=48.0)
+    js, ts = jsynth.make_corridor(**kw), tsynth.make_corridor(**kw)
+    ts2 = tsynth.make_corridor(**dict(kw, seed=5))
+    js2 = jsynth.make_corridor(**dict(kw, seed=5))
+    gt = jsynth.corridor_trajectory(24, radius=8.0)
+    for i in (0, 0, 7, 3, 7):
+        _same(jsynth.depth_room(js, gt[i]), tsynth.depth_room(ts, gt[i]))
+        _same(jsynth.depth_room(js2, gt[i]), tsynth.depth_room(ts2, gt[i]))
+        _same(jsynth.render_room(js, gt[i], seed=i), tsynth.render_room(ts, gt[i], seed=i))
+        _same(jsynth.depth_room(js, gt[i]), tsynth.depth_room(ts, gt[i]))
+        # the same pose in another dtype casts anew, to the same result
+        _same(jsynth.depth_room(js, gt[i]), tsynth.depth_room(ts, gt[i].astype(np.float64)))
