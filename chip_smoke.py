@@ -56,8 +56,11 @@ Phases, each printed on its own line:
    3b. the Schur BA solver (ops/ba.ba_solve) on seeded problems at the
    local-BA cell (C=16, P=2048, E=8192) and the global-BA cell (C=128,
    P=8192, E=65536), held to the same call on the CPU (final cost within
-   1e-3 relative, inlier masks equal on >= 99.5% of edges), with ms per
-   solve from CUDA events and kernels per solve from a profiler trace;
+   1e-3 relative, inlier masks equal on >= 99.5% of edges); after 3f, the
+   solves' times are the kernel profiler's rows of the same problems
+   (utils/profile_kernels.ba_rows, cg and dense: ms per solve from CUDA
+   events, device ms and kernels from torch.profiler, bytes, FLOP and the
+   share of the bound);
    3e. the vocabulary trainer (in this process after phase 10, while the
    laps of phase 8 run on): the first 5 scenes of the JAX script's
    descriptor set (one of each image mode, 1000 features) extracted on the
@@ -89,7 +92,9 @@ Phases, each printed on its own line:
    synchronously through System.track_stereo (1 `hamming_matrix` and 2
    `hamming_best2` a tracked frame);
 6. monocular, the bench's headline row (180-frame orbit, ThDepth=35):
-   pipelined with async mapping (initialized within the first 30% of the
+   through the bench's own row (bench.full_system_row, one repeat, its
+   System kept for phase 7; the row and the bench's first line for it are
+   printed), pipelined with async mapping (initialized within the first 30% of the
    frames, at least 90% of the later frames tracked, Sim(3)-aligned ATE <= 8
    cm, at least 3 keyframes, one local BA solve and one triangulated point,
    `hamming_best2` launched by the initialization), and its first 40 frames
@@ -136,7 +141,7 @@ Phases, each printed on its own line:
    lap names them); `hamming_best2` must have
    been launched by the loop closer (caller "loop") on both laps;
    8b. after the monocular lap, in its process, the lap's first 40 frames
-   through 4 fresh Systems, one frame at a time (LAP_REPEAT): the runs must
+   through 2 fresh Systems, one frame at a time (LAP_REPEAT): the runs must
    agree (what each recorded, and its trajectory, bit for bit);
    8c. the RGB-D lap again with the mapper on its worker (`--loop-lap rgbd
    --async`; the loop closer's Sim(3), pose graph and fuse on the worker's
@@ -205,12 +210,12 @@ Phases, each printed on its own line:
    The phase lines print the collectives and the ms of each solve.
    10e. the endurance run's plumbing, in this process while the dry runs of
    10b and 10c run: endurance_run.main(["--sensor",
-   "rgbd", "--frames", "96", "--laps", "0.2"]) (the block driver, the
+   "rgbd", "--frames", "48", "--laps", "0.1"]) (the block driver, the
    mapper on its worker, the loop closer and the global BA over the first
-   96 frames of the 480-frame corridor lap at 640x480): its JSON line has
+   48 frames of the 480-frame corridor lap at 640x480): its JSON line has
    the JAX script's keys plus `launches` and `max_keyframes`, its launches
    are the ones counted in this process, its device is this card; at least
-   90 frames tracked, both Hamming kernels launched by the tracker,
+   42 frames tracked, both Hamming kernels launched by the tracker,
    `hamming_best2` by the mapper, one `bow_assign` a keyframe made.
 
 The launch counts are set to 0 just before each path and read just after;
@@ -262,7 +267,6 @@ BA_CELLS = (("local", 16, 2048, 8192), ("global", 128, 8192, 65536))
 PGO_CELL = (421, 2821)
 # the global BA's chunk: (iters1, iters2) of each of its ba_solve calls
 GBA_CHUNK = (1, 2)
-FP32_OPS_PER_S, FP64_OPS_PER_S = 67e12, 34e12  # H100 SXM, outside the tensor cores
 ORBIT_FRAMES = 48
 SYNC_ORBIT_FRAMES = 12       # synchronous RGB-D and stereo: the orbit's start
 SYNC_SWEEP_FRAMES = 60
@@ -295,8 +299,9 @@ LOOP_TIMEOUT_S = 900
 # phase 8b: (sensor, runs, frames) of the lap's start, rerun in fresh Systems
 # in the process of that sensor's lap, after the lap; the runs must agree. The
 # RGB-D lap's start repeats too (`--lap-start rgbd 4 24`), but beside the
-# inline lap it took the call past 600 s
-LAP_REPEAT = ("mono", 4, 40)
+# inline lap it took the call past 600 s; 2 mono runs, not 4, keep the call
+# under 650 s since the bench's phase 6 and the profiler's 3b
+LAP_REPEAT = ("mono", 2, 40)
 # the gates of the laps with the mapper inline, as tests/test_loop_closure_e2e.py's
 # System runs them and where its gates were set; the RGB-D lap with the mapper
 # on its worker (8c) keeps the tracked gate only, beside the launches of its
@@ -316,11 +321,14 @@ MERGE_ATE_GATE = 1.5 * 0.05124
 VIEWER_WAIT_S = 30  # for the viewer's first renders
 # 10e: the endurance run's cut and the keys of the JAX package's
 # scripts/endurance_run.py line; the port adds `launches` and `max_keyframes`
-ENDURANCE_SMOKE = ["--sensor", "rgbd", "--frames", "96", "--laps", "0.2"]
+# (48 frames since the bench's phase 6 and the profiler's 3b: 96 took 115 to
+# 123 s of the main process, which ends last, and the dry runs beside it
+# slow down with it)
+ENDURANCE_SMOKE = ["--sensor", "rgbd", "--frames", "48", "--laps", "0.1"]
 ENDURANCE_KEYS = ("sensor", "frames", "laps", "tracked", "first_ok", "median_ms", "fps",
                   "wall_s", "ate_m", "keyframes", "points", "kf_created_total",
                   "kf_culled", "loops", "gba_applied", "loop_fused", "closures", "device")
-ENDURANCE_MIN_TRACKED = 90
+ENDURANCE_MIN_TRACKED = 42  # the frames less 6, as 90 of 96 was
 # 10c: the single-process CG GBAs, on the map as saved (None) and with every
 # point one float32 ulp towards +inf and -inf; with the default GBA, their
 # spread is the float32 resolution of the map's solve
@@ -335,16 +343,7 @@ VOCAB_SCENES, VOCAB_FEATURES, VOCAB_K, VOCAB_LEVELS = 5, 1000, 10, 3
 VOCAB_FIELDS = ("node_desc", "node_children", "node_word", "word_node", "word_weight")
 HOST_OPS_KEYFRAMES = (50, 150)
 T = None      # orbslam2_tpu_torch.utils.cuda_timing, imported in main()
-
-
-def _bound(n_bytes: int, n_mma: int, mma_per_s: float) -> dict:
-    """The least time the card could take: the bytes over the data-sheet
-    memory rate against the tensor-core instructions over the measured rate."""
-    by_bytes = 1e3 * n_bytes / T.HBM_BYTES_PER_S
-    by_ops = 1e3 * n_mma / mma_per_s
-    return dict(bound_ms=max(by_bytes, by_ops), bound_bytes_ms=by_bytes,
-                bound_ops_ms=by_ops,
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+PK = None     # orbslam2_tpu_torch.utils.profile_kernels: the byte and operation counts
 
 
 def _times(row: dict, tag: str) -> str:
@@ -400,8 +399,7 @@ def check_hamming_matrix(CK, PH, lib, mma_per_s: float, timed: bool = True) -> d
                    floor=PH.empty_kernel_ms(lib, -(-A // 64), -(-B // 64), 128),
                    library_ms=T.time_ms(lambda: pm1[0] @ pm1[1]),
                    library_dev=T.queued_ms(lambda: pm1[0] @ pm1[1], reps=10),
-                   **_bound(4 * A * B + 32 * (A + B),
-                            2 * -(-A // 16) * -(-B // 8), mma_per_s))
+                   **T.bound(*PK.hamming_matrix_counts(A, B), mma_per_s))
         del keep
         print(_times(row, f"phase 3: hamming_matrix [{A},{B}] exact (max_abs_err 0)")
               + f"; torch.matmul of +-1 fp16 bits per call {row['library_ms']:.4f} "
@@ -431,9 +429,6 @@ def best2_row(CK, PH, lib, mma_per_s: float, kind: str, a_np, b_np, cand_np,
         print(f"phase 3: hamming_best2 [{A},{B}] {kind} mask exact, guard rows "
               "intact", flush=True)
         return dict(err=err)
-    padded = torch.nn.functional.pad(cand, (0, -B % 64, 0, -A % 16))
-    chunks = int(padded.view(-(-A // 16), 16, -(-B // 64), 64)
-                 .any(dim=3).any(dim=1).sum().item())
     n_sets = T.cold_count(A * B)
     masks = [cand.clone() for _ in range(n_sets)] if cold else None
     row = dict(err=err, shape=f"{A}x{B}", density=float(cand_np.mean()),
@@ -447,7 +442,7 @@ def best2_row(CK, PH, lib, mma_per_s: float, kind: str, a_np, b_np, cand_np,
                floor=PH.empty_kernel_ms(lib, -(-A // 16), 1, 512),
                unfused_dev=T.queued_ms(lambda: CK.masked_best2(
                    CK.hamming_matrix(a, b), cand), reps=reps),
-               **_bound(A * B + 32 * (A + B) + 12 * A, 16 * chunks, mma_per_s))
+               **T.bound(*PK.hamming_best2_counts(cand), mma_per_s))
     print(_times(row, f"phase 3: hamming_best2 [{A},{B}] {kind} mask "
                       f"({100 * row['density']:.2f}% true) exact on idx, best, "
                       "second (max_abs_err 0)")
@@ -644,11 +639,9 @@ def check_seg_sum(CK, PH, BA, PG, lib, timed: bool = True) -> dict:
             print(f"phase 3f: seg_sum {name} [{shape}] {np.dtype(dtype).name} {path} path, "
                   f"equal to the CPU bit for bit, guard rows intact{warm}", flush=True)
             continue
-        d = int(np.prod(tail, dtype=np.int64))
         es = x.element_size()
-        n_bytes = len(idx) * (d * es + 4) + 4 * (n + 1) + n * d * es
-        by_bytes = 1e3 * n_bytes / T.HBM_BYTES_PER_S
-        by_ops = 1e3 * len(idx) * d / (FP32_OPS_PER_S if es == 4 else FP64_OPS_PER_S)
+        n_bytes, n_adds = PK.seg_sum_counts(len(idx), int(np.prod(tail, dtype=np.int64)),
+                                            n, es)
         n_sets = T.cold_count(n_bytes)
         xs = [x.clone() for _ in range(n_sets)]
         outs = [torch.empty_like(buf[1]) for _ in range(n_sets)]
@@ -664,9 +657,8 @@ def check_seg_sum(CK, PH, BA, PG, lib, timed: bool = True) -> dict:
                    floor=PH.empty_kernel_ms(lib, blocks, 1, threads),
                    library_ms=T.time_ms(lambda: zero.index_add_(0, i_dev, x)),
                    library_dev=T.queued_ms(lambda: zero.index_add_(0, i_dev, x), reps=10),
-                   bound_ms=max(by_bytes, by_ops), bound_bytes_ms=by_bytes,
-                   bound_ops_ms=by_ops,
-                   bound_by="bytes" if by_bytes >= by_ops else "operations")
+                   **T.bound(n_bytes, n_adds,
+                             T.FP32_OPS_PER_S if es == 4 else T.FP64_OPS_PER_S))
         del xs, outs
         print(f"phase 3f: seg_sum {name} [{shape}] {np.dtype(dtype).name} {path} path, "
               f"equal to the CPU bit for bit (max_abs_err 0), guard rows intact; per call (CUDA "
@@ -759,12 +751,11 @@ def _same(a, b) -> bool:
 def check_ba(BA, PG, CK) -> dict:
     """ba_solve on the card against the same call on the CPU, at both BA
     cells: cost within 1e-3 relative, inlier masks on >= 99.5% of edges;
-    a second card solve equal to the first bit for bit. The same for the
-    pose graph of PGO_CELL (the card's pair equal, the cost within 1% of
-    the CPU's). Returns seg_sum's launches per local BA, per global BA
+    a second card solve equal to the first bit for bit (the solves' times
+    are the kernel profiler's `ba_rows`, after 3f). The same for the pose
+    graph of PGO_CELL (the card's pair equal, the cost within 1% of the
+    CPU's), timed. Returns seg_sum's launches per local BA, per global BA
     chunk (GBA_CHUNK) and per pose-graph optimization."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     per_call = {}
     for name, C, P, E in BA_CELLS:
         arrays, intr = BA.synthetic_problem(C, P, E, seed=0)
@@ -789,19 +780,11 @@ def check_ba(BA, PG, CK) -> dict:
             CK.reset_launch_counts()
             BA.ba_solve(prob, *intr, iters1=GBA_CHUNK[0], iters2=GBA_CHUNK[1])
             per_call["GBA chunk"] = CK.seg_sum.launches
-        ms = T.time_ms(lambda: BA.ba_solve(prob, *intr), reps=5)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            BA.ba_solve(prob, *intr)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        n_kern = sum(e.count for e in kern)
-        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
         print(f"phase 3b: ba_solve {name} C={C} P={P} E={E} ({solver}): cost "
               f"card {c_gpu:.6g} CPU {c_cpu:.6g} (rel diff {rel:.2e}), inliers "
               f"agree on {100 * agree:.3f}% ({int(i_gpu.sum())}/{E}); a second card "
-              f"solve equal bit for bit; {ms:.2f} ms per solve (CUDA events), {n_kern} "
-              f"kernels and {dev_ms:.2f} ms device time per solve (profiler); "
-              f"{per_call[f'{name} BA']} seg_sum launches a solve", flush=True)
+              f"solve equal bit for bit; {per_call[f'{name} BA']} seg_sum launches a "
+              "solve", flush=True)
     K, E = PGO_CELL
     args = PG.synthetic_problem(K, E, seed=0)
     out = {}
@@ -828,28 +811,16 @@ def check_ba(BA, PG, CK) -> dict:
 _RENDERED: dict = {}
 
 
-def render_sequence(synth, scene, name: str, gt: np.ndarray, sensor: str):
+def render_sequence(scene, name: str, gt: np.ndarray, sensor: str):
     """The sequence items (timestamp, {"image", "depth"?, "right"?}) of one
-    trajectory for one sensor, as bench.py renders them (the right image from
-    the pose shifted 0.5 m along the camera's x axis, seed 10000 + i).
-    Rendered once per (trajectory, sensor) with 8 threads; a shorter run of
-    the same trajectory takes its first frames."""
+    trajectory for one sensor, as the bench renders them (bench.render_frames:
+    the right image from the pose shifted bf/fx = 0.5 m along the camera's x
+    axis, seed 10000 + i). Rendered once per (trajectory, sensor); a shorter
+    run of the same trajectory takes its first frames."""
+    from orbslam2_tpu_torch import bench
     key = (name, len(gt), sensor)
-    if key in _RENDERED:
-        return _RENDERED[key]
-
-    def item(i):
-        data = {"image": _u8(synth, scene, gt[i], i)}
-        if sensor == "rgbd":
-            data["depth"] = synth.depth_room(scene, gt[i])
-        elif sensor == "stereo":
-            right = gt[i].copy()
-            right[:, 3] = right[:, 3] - np.array([0.5, 0, 0], np.float32)
-            data["right"] = _u8(synth, scene, right, 10_000 + i)
-        return i / 30.0, data
-
-    with ThreadPoolExecutor(8) as pool:
-        _RENDERED[key] = list(pool.map(item, range(len(gt))))
+    if key not in _RENDERED:
+        _RENDERED[key] = bench.render_frames(scene, gt, sensor, 250.0 / 500.0)
     return _RENDERED[key]
 
 
@@ -860,10 +831,8 @@ def run_sequence(P, CK, evaluation, tag: str, name: str, items, gt: np.ndarray,
     sensor's entry point (System.track_rgbd / track_stereo / track_monocular,
     mapper inline), or pipelined through System(async_mapping=True)
     .run_sequence. Counts the path's kernel launches from 0 and applies the
-    sensor's gates; keep=True drains the mapping worker instead of stopping
-    it and returns the live System under "system"; a run that is not the `whole` sequence
-    (the start of the monocular orbit) must initialize and end OK, and is
-    not held to the 30% and the ATE gate."""
+    sensor's gates (`check_run`); keep=True drains the mapping worker
+    instead of stopping it and returns the live System under "system"."""
     n = len(items)
     slam = P.System(cfg, device="cuda", async_mapping=pipelined)
     entry = {"rgbd": lambda ts, d: slam.track_rgbd(d["image"], d["depth"], ts),
@@ -880,8 +849,35 @@ def run_sequence(P, CK, evaluation, tag: str, name: str, items, gt: np.ndarray,
     else:
         tracked = sum(entry(ts, d) is not None for ts, d in items)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = launch_counts(CK)
+    return check_run(evaluation, tag, name, slam, n, tracked, time.perf_counter() - t0,
+                     launch_counts(CK), gt, sensor, whole, keep)
+
+
+def bench_row(bench, CK, evaluation, tag: str, name: str, scene, items, gt: np.ndarray,
+              sensor: str, card: dict) -> dict:
+    """The bench's row of `sensor` over the rendered `items`
+    (bench.full_system_row: one repeat through System(async_mapping=True)
+    .run_sequence(pipelined=True), no set-up, the kernels being built), its
+    System kept; prints the row and the bench's first line for it
+    (bench.headline), and applies the sensor's gates (`check_run`)."""
+    row = bench.full_system_row(sensor, len(items), "cuda", repeats=1, scene=scene,
+                                frames=items, warm_frames=0, keep=True)
+    print(f"{tag}: {name}: {bench.row_line(row)}", flush=True)
+    print(f"{tag}: {name}: the bench's line: {json.dumps(bench.headline(row, card))}",
+          flush=True)
+    # the counts are the row's one repeat's: the bench reset them just before it
+    run = row["runs"][0]
+    return check_run(evaluation, tag, name, row["system"], run["n"], run["tracked"],
+                     run["wall_s"], launch_counts(CK), gt, sensor, True, True)
+
+
+def check_run(evaluation, tag: str, name: str, slam, n: int, tracked: int, seconds: float,
+              launches: dict, gt: np.ndarray, sensor: str, whole: bool, keep: bool) -> dict:
+    """The sensor's gates on a tracked run and its kernel launches; prints
+    its numbers. A run that is not the `whole` sequence (the start of the
+    monocular orbit) must initialize and end OK, and is not held to the 30%
+    and the ATE gate. Returns its launches, mapper counters, keyframes,
+    tracked frames, first OK frame, and with keep=True the System."""
     recs = slam.metrics.records
     first_ok = next((i for i, r in enumerate(recs) if r.state == "OK"), n)
     ts, est = slam.tracker.trajectory()
@@ -2201,7 +2197,7 @@ def check_datasets(P, CK, synth, evaluation, scene, orbit, work) -> list:
     for sensor, mode, write in (("rgbd", "rgbd_tum", write_tum_rgbd),
                                 ("stereo", "stereo_kitti", write_kitti_stereo)):
         root = work / mode
-        write(root, render_sequence(synth, scene, "orbit", orbit, sensor))
+        write(root, render_sequence(scene, "orbit", orbit, sensor))
         cfg = bench_config(scene, P.Sensor.RGBD if sensor == "rgbd" else P.Sensor.STEREO)
         write_settings(work / f"{mode}.yaml", cfg, 5000.0 if sensor == "rgbd" else 0.0)
         argv = [mode, str(work / f"{mode}.yaml"), str(root)]
@@ -2553,7 +2549,7 @@ def main() -> int:
                          deterministic="--deterministic" in sys.argv[5:],
                          async_mapping="--async" in sys.argv[5:])
     import orbslam2_tpu_torch as P
-    from orbslam2_tpu_torch import _build, native
+    from orbslam2_tpu_torch import _build, bench, native
     from orbslam2_tpu_torch.io import synth
     from orbslam2_tpu_torch.io.vocabulary import default_vocabulary
     from orbslam2_tpu_torch.ops import ba as BA
@@ -2564,10 +2560,11 @@ def main() -> int:
     from orbslam2_tpu_torch.utils import cuda_timing, evaluation
     from orbslam2_tpu_torch.utils import bench_host_ops
     from orbslam2_tpu_torch.utils import probe_hamming as PH
+    from orbslam2_tpu_torch.utils import profile_kernels
     from orbslam2_tpu_torch.utils.profile_frame import bench_config
 
-    global T
-    T = cuda_timing
+    global T, PK
+    T, PK = cuda_timing, profile_kernels
     t_start = time.perf_counter()
     phase_seconds: dict = {}
     mark = [t_start]
@@ -2627,6 +2624,11 @@ def main() -> int:
     lap_seconds("3")
     seg = check_seg_sum(CK, PH, BA, PG, lib)
     lap_seconds("3f")
+    # phase 3b's solve times: the kernel profiler's rows of the same problems
+    for row in PK.ba_rows("cuda"):
+        print(f"phase 3b (utils/profile_kernels.py): {PK.line(PK.measure(row, mma_per_s))}",
+              flush=True)
+    lap_seconds("3b times")
 
     # phase 8's monocular lap, the longest phase, in a process of its own
     # beside phases 4 to 10; the RGB-D laps, inline (8) and with the mapper
@@ -2645,7 +2647,7 @@ def main() -> int:
     mono_orbit = synth.orbit_trajectory(MONO_FRAMES)
 
     def run(tag, name, gt, sensor, pipelined, n=None, keep=False):
-        items = render_sequence(synth, scene, name, gt, sensor)[:n]
+        items = render_sequence(scene, name, gt, sensor)[:n]
         return run_sequence(P, CK, evaluation, tag, f"{sensor}-{name}-{len(items)}",
                             items, gt, cfgs[sensor], sensor, pipelined,
                             whole=sensor != "mono" or n is None, keep=keep)
@@ -2663,9 +2665,9 @@ def main() -> int:
         raise AssertionError("pipelined sweep: no local BA solve")
     if piped[0]["launches"]["hamming_best2"].get("mapper", 0) <= 0:
         raise AssertionError("pipelined sweep: the mapper never launched hamming_best2")
-    check_block_sync_free(P, render_sequence(synth, scene, "orbit", orbit, "rgbd"),
+    check_block_sync_free(P, render_sequence(scene, "orbit", orbit, "rgbd"),
                           cfgs["rgbd"], "rgbd")
-    check_block_sync_free(P, render_sequence(synth, scene, "orbit", orbit, "stereo"),
+    check_block_sync_free(P, render_sequence(scene, "orbit", orbit, "stereo"),
                           cfgs["stereo"], "stereo")
     lap_seconds("4")
 
@@ -2681,9 +2683,12 @@ def main() -> int:
                                  f"launches by the tracker over {r['tracked']} tracked "
                                  "frames (gate: 1 and 2 a tracked frame)")
     lap_seconds("5")
-    # phase 6, monocular: initialization launches hamming_best2 under the
-    # +-100 px window mask, counted apart from the tracker
-    mono = [run("phase 6", "orbit", mono_orbit, "mono", True, keep=True),
+    # phase 6, monocular: the bench's headline row, one repeat; the
+    # initialization launches hamming_best2 under the +-100 px window mask,
+    # counted apart from the tracker
+    mono = [bench_row(bench, CK, evaluation, "phase 6", f"mono-orbit-{MONO_FRAMES}", scene,
+                      render_sequence(scene, "orbit", mono_orbit, "mono"), mono_orbit,
+                      "mono", T.card()),
             run("phase 6", "orbit", mono_orbit, "mono", False, SYNC_MONO_FRAMES)]
     for r in mono:
         if r["launches"]["hamming_best2"].get("mono_init", 0) <= 0:

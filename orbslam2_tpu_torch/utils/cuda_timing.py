@@ -1,4 +1,5 @@
-"""Timing of device work with CUDA events (chip_smoke.py, the probes).
+"""Timing of device work with CUDA events (chip_smoke.py, the bench, the
+probes and the kernel profiler), and the least time the card could take.
 
 Two clocks and two cache states:
 
@@ -20,6 +21,31 @@ import torch
 
 L2_BYTES = 50 * 1000 * 1000  # H100
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+# H100 SXM data sheet, outside the tensor cores. The sheet gives no integer
+# rate there, so integer work is counted at the float32 rate: the bound it
+# gives can only be lower than the true one
+FP32_OPS_PER_S, FP64_OPS_PER_S = 67e12, 34e12
+
+
+def bound(n_bytes: int, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take for a call: its bytes (each input
+    read once, each output written once) over the data-sheet memory rate
+    against its operations over `ops_per_s` (a data-sheet peak, or the
+    tensor-core instruction rate measured in the run). Milliseconds, and
+    which of the two bounds it."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * n_ops / ops_per_s
+    return dict(bound_ms=max(by_bytes, by_ops), bound_bytes_ms=by_bytes,
+                bound_ops_ms=by_ops,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def card() -> dict:
+    """{"name", "power_limit_w", "count"}: the first card as `card_line`
+    reads it, and the number of CUDA devices."""
+    name, limit = (part.strip() for part in card_line().rsplit(",", 1))
+    return {"name": name, "power_limit_w": float(limit.split()[0]),
+            "count": torch.cuda.device_count()}
 
 
 def card_line() -> str:
@@ -30,10 +56,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 50) -> float:
+def time_ms(fn, reps: int = 50, warm: int = 3) -> float:
     """Mean time per call of fn() over reps back-to-back calls, from CUDA
-    events: what a caller pays, launch cost included."""
-    for _ in range(3):
+    events, after `warm` calls: what a caller pays, launch cost included."""
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

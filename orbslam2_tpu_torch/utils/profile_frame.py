@@ -28,7 +28,6 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from .. import System, SlamConfig, Sensor, with_camera
@@ -115,23 +114,15 @@ def main(argv=None) -> int:
 
     print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
+    from ..bench import render_frames
     scene = synth.make_room(seed=0)
-    gt = synth.orbit_trajectory(48)
-    n = N_WARM + 3 * N_WINDOW
-    def u8(pose, seed):
-        return np.clip(synth.render_room(scene, pose, seed=seed), 0, 255).astype(np.uint8)
-
-    def second(i):
-        """The depth map, or the right image as bench.py renders it."""
-        if args.sensor == "rgbd":
-            return synth.depth_room(scene, gt[i])
-        right = gt[i].copy()
-        right[:, 3] = right[:, 3] - np.array([0.5, 0, 0], np.float32)
-        return u8(right, 10_000 + i)
-
-    frames = [(u8(gt[i], i), second(i)) for i in range(n)]
     sensor = Sensor.RGBD if args.sensor == "rgbd" else Sensor.STEREO
-    slam = System(bench_config(scene, sensor), device="cuda", vocabulary=None)
+    cfg = bench_config(scene, sensor)
+    # the image and the depth map or the right image, as the bench renders them
+    gt = synth.orbit_trajectory(48)[:N_WARM + 3 * N_WINDOW]
+    frames = [(d["image"], d["depth" if args.sensor == "rgbd" else "right"])
+              for _, d in render_frames(scene, gt, args.sensor, cfg.camera.bf / cfg.camera.fx)]
+    slam = System(cfg, device="cuda", vocabulary=None)
     print(f"sensor: {args.sensor}; vocabulary: {slam.vocabulary.n_words} words",
           flush=True)
     for i in range(N_WARM):
