@@ -40,7 +40,6 @@ between chunks ends the solve on every rank.
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 import torch
@@ -52,7 +51,7 @@ from .ops import ba as BA
 from .ops import cuda_kernels as CK
 from .ops import features as F
 from .parallel import dist_ba, multihost
-from .utils.metrics import log_event
+from .utils.metrics import log_event, span
 
 
 class GlobalBA:
@@ -148,23 +147,22 @@ class GlobalBA:
         if uploaded is not None:
             stream = torch.cuda.Stream(device=self.device)
             stream.wait_event(uploaded)
-        t0 = time.perf_counter()
         chunk_ms = []
         res = None
-        # no-op without a stream (the CPU); the solve's kernel launches count
-        # under "gba"
-        with torch.cuda.stream(stream), CK.launches_counted_as("gba"):
+        # no-op without a stream (the CPU); the solve is a span "gba" and its
+        # kernel launches count under that name
+        with torch.cuda.stream(stream), CK.launches_counted_as("gba") as whole:
             solve, n_dev = self._solver_fn(prob)
             if n_dev > 1:
                 log_event("gba_distributed", devices=n_dev,
                           cams=int(prob.cam_T.shape[0]))
             try:
                 for c in range(chunks):
-                    tc = time.perf_counter()
-                    res = solve(prob, chunk_iters[0], chunk_iters[1])
-                    if stream is not None:
-                        stream.synchronize()
-                    chunk_ms.append((time.perf_counter() - tc) * 1e3)
+                    with span("gba.chunk") as chunk:
+                        res = solve(prob, chunk_iters[0], chunk_iters[1])
+                        if stream is not None:
+                            stream.synchronize()
+                    chunk_ms.append(chunk.elapsed_ms)
                     if self.chunk_hook is not None:
                         self.chunk_hook(c)
                     if self._abort.is_set():
@@ -180,7 +178,7 @@ class GlobalBA:
         with self._lock:
             self._result = result
             self.chunk_ms = chunk_ms
-            self.solve_ms.append((time.perf_counter() - t0) * 1e3)
+            self.solve_ms.append(whole.elapsed_ms)
 
     # ------------------------------------------------------------------- abort
     def request_abort(self):

@@ -42,7 +42,7 @@ from .ops import cuda_kernels as CK
 from .ops import features as F
 from .ops import refine as RF
 from .utils.device import upload
-from .utils.metrics import log_event
+from .utils.metrics import log_event, span
 
 STAGES = ("prep", "newpts", "fuse", "ba", "cull", "loop")
 
@@ -697,14 +697,14 @@ class LocalMapper:
             log_event("ba_edges_dropped", dropped=meta["n_dropped"],
                       kept=meta["E_need"])
         cam_p = self.cfg.camera
-        t0 = time.perf_counter()
-        res = BA.ba_solve(prob, cam_p.fx, cam_p.fy, cam_p.cx, cam_p.cy,
-                          cam_p.bf, iters1=iters[0], iters2=iters[1])
-        cam_arr, points = meta["cam_arr"], meta["points"]
-        new_T = res.cam_T.cpu().numpy()[:len(cam_arr)]
-        new_pts = res.pts.cpu().numpy()[:len(points)]
-        inl = res.e_inlier.cpu().numpy()[:meta["E_need"]]
-        self.ba_solve_ms.append((time.perf_counter() - t0) * 1e3)
+        with span("mapper.local_ba") as solve:
+            res = BA.ba_solve(prob, cam_p.fx, cam_p.fy, cam_p.cx, cam_p.cy,
+                              cam_p.bf, iters1=iters[0], iters2=iters[1])
+            cam_arr, points = meta["cam_arr"], meta["points"]
+            new_T = res.cam_T.cpu().numpy()[:len(cam_arr)]
+            new_pts = res.pts.cpu().numpy()[:len(points)]
+            inl = res.e_inlier.cpu().numpy()[:meta["E_need"]]
+        self.ba_solve_ms.append(solve.elapsed_ms)
         self.counters["ba_solves"] += 1
         with mp.lock:
             fixed_set = meta["fixed_set"]

@@ -23,6 +23,15 @@ replaces g2o's sparse BlockSolver_6_3 + OptimizationAlgorithmLevenberg:
 Nothing is read back from the device inside a solve: the LM and CG
 iterations are Python loops of device ops.
 
+Each phase is a span (utils/metrics.py), opened where its ops are launched:
+`ba.solve`, `ba.plans`, `ba.lm` (an LM iteration), `ba.edge_terms` (every
+residual and Jacobian batch: the LM's terms, the trial cost, the
+classification), `ba.assemble` (the block sums, W, the Hpp inverse and the
+Schur right-hand side), `ba.pcg` with `ba.pcg.matvec` (one a CG step) or
+`ba.dense_schur`, `ba.apply` (back-substitution and accept/reject) and
+`ba.classify`. While spans are recorded, a device trace's kernels and idle
+gaps can be put down to the phase that launched them.
+
 `group` shards the solve by point owner (parallel/dist_ba.py): each rank
 holds its points and every edge of them, the cameras are replicated. The
 camera-indexed sums (Hcc, the Schur rhs, the CG matvec) and the costs then
@@ -40,6 +49,7 @@ import torch
 from ..geometry import se3
 from ..parallel import collectives as COL
 from ..utils.device import upload
+from ..utils.metrics import span, spanned
 from . import ba_core as BC
 from . import cuda_kernels as CK
 
@@ -74,6 +84,7 @@ class BAPlans(NamedTuple):
     pair: CK.SegPlan | None
 
 
+@spanned("ba.plans")
 def ba_plans(p: BAProblem, dense: bool) -> BAPlans:
     """The plans of p's edges, built on p's device without a readback. Every
     edge is in them, the invalid ones too (they carry zero weight), so the
@@ -90,6 +101,7 @@ class BAResult(NamedTuple):
     cost: torch.Tensor
 
 
+@spanned("ba.edge_terms")
 def _edge_terms(p: BAProblem, cam_T, pts, e_active, fx, fy, cx, cy, bf, robust):
     """Residuals, Jacobians and weights for every edge."""
     Te = cam_T[p.e_cam]                      # [E, 3, 4]
@@ -143,6 +155,7 @@ def _cholesky(S: torch.Tensor) -> torch.Tensor:
     return L
 
 
+@spanned("ba.dense_schur")
 def _dense_schur_step(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs,
                       free_cam):
     """Form the reduced camera system S = Hcc_d - W Hpp^-1 W^T (one matrix
@@ -168,6 +181,7 @@ def _dense_schur_step(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs,
     return (dx * f).reshape(C, 6)
 
 
+@spanned("ba.lm")
 def _lm_iteration(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx,
                   fy, cx, cy, bf, robust, cg_iters: int, dense_schur: bool = False,
                   group=None):
@@ -176,24 +190,25 @@ def _lm_iteration(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx,
 
     free_cam = (p.cam_valid & ~p.cam_fixed).to(torch.float32)[:, None]
 
-    # block assembly (segment sums over the edge list)
-    Jpm = Jp * m[:, None, None]
-    Jptm = Jpt * m[:, None, None]
-    Hcc = CK.seg_sum(Jpm.transpose(1, 2) @ Jp, plans.cam)
-    bc = CK.seg_sum(-torch.einsum("eri,er->ei", Jpm, res), plans.cam)
-    Hpp = CK.seg_sum(Jptm.transpose(1, 2) @ Jpt, plans.pt)
-    bp = CK.seg_sum(-torch.einsum("eri,er->ei", Jptm, res), plans.pt)
-    W = Jpm.transpose(1, 2) @ Jpt  # [E, 6, 3]
+    with span("ba.assemble"):
+        # block assembly (segment sums over the edge list)
+        Jpm = Jp * m[:, None, None]
+        Jptm = Jpt * m[:, None, None]
+        Hcc = CK.seg_sum(Jpm.transpose(1, 2) @ Jp, plans.cam)
+        bc = CK.seg_sum(-torch.einsum("eri,er->ei", Jpm, res), plans.cam)
+        Hpp = CK.seg_sum(Jptm.transpose(1, 2) @ Jpt, plans.pt)
+        bp = CK.seg_sum(-torch.einsum("eri,er->ei", Jptm, res), plans.pt)
+        W = Jpm.transpose(1, 2) @ Jpt  # [E, 6, 3]
 
-    # LM damping (multiplicative on block diagonals)
-    eye6 = torch.eye(6, device=cam_T.device)
-    eye3 = torch.eye(3, device=cam_T.device)
-    Hpp_d = Hpp + lam * Hpp * eye3 + 1e-8 * eye3
-    Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]   # [P, 3, 3] point marginalization
+        # LM damping (multiplicative on block diagonals)
+        eye6 = torch.eye(6, device=cam_T.device)
+        eye3 = torch.eye(3, device=cam_T.device)
+        Hpp_d = Hpp + lam * Hpp * eye3 + 1e-8 * eye3
+        Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]   # [P, 3, 3] point marginalization
 
-    # Schur RHS: bc - W Hpp^-1 bp
-    hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
-    rhs = bc - CK.seg_sum(torch.einsum("eij,ej->ei", W, hb[p.e_pt]), plans.cam)
+        # Schur RHS: bc - W Hpp^-1 bp
+        hb = torch.einsum("pij,pj->pi", Hpp_inv, bp)
+        rhs = bc - CK.seg_sum(torch.einsum("eij,ej->ei", W, hb[p.e_pt]), plans.cam)
     Hcc, rhs, cost = COL.all_reduce([Hcc, rhs, cost], group)
     Hcc_d = Hcc + lam * Hcc * eye6 + 1e-8 * eye6
     rhs = rhs * free_cam
@@ -206,10 +221,12 @@ def _lm_iteration(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx,
                        robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam, group)
 
 
+@spanned("ba.pcg")
 def _pcg(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam,
          cg_iters: int, group=None):
     """Block-Jacobi preconditioned CG on the reduced camera system, matrix
     free: S @ x costs two edge gathers and two segment sums."""
+    @spanned("ba.pcg.matvec")
     def S_mv(x):
         x = x * free_cam
         u = torch.einsum("eij,ei->ej", W, x[p.e_cam])          # [E, 3] = W^T x
@@ -248,6 +265,7 @@ def _pcg(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam,
     return x
 
 
+@spanned("ba.apply")
 def _apply_step(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx, fy,
                 cx, cy, bf, robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam,
                 group=None):
@@ -273,6 +291,7 @@ def _apply_step(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx, fy,
     return cam_T, pts, lam, torch.minimum(cost_new, cost)
 
 
+@spanned("ba.classify")
 def _classify(p: BAProblem, cam_T, pts, fx, fy, cx, cy, bf):
     _, _, _, _, _, chi2, z = _edge_terms(
         p, cam_T, pts, p.e_valid, fx, fy, cx, cy, bf, robust=False)
@@ -293,6 +312,7 @@ def _use_dense_schur(C: int, P: int, solver: str) -> bool:
     return P * C <= _DENSE_SCHUR_MAX_PC and 6 * C <= 4096
 
 
+@spanned("ba.solve")
 def ba_solve(p: BAProblem, fx: float, fy: float, cx: float, cy: float,
              bf: float, iters1: int = 5, iters2: int = 10,
              cg_iters: int = 24, solver: str = "auto", group=None) -> BAResult:

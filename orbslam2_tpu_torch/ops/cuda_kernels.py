@@ -36,8 +36,9 @@ it runs its plain version, which is also what tests and chip_smoke.py compare
 the kernel with. `<wrapper>.launches` counts kernel launches, and
 `<wrapper>.launches_by` splits them by caller: the launches a thread makes
 inside `launches_counted_as(name)` count under `name`, the others under
-"tracker". Every wrapper takes `out=`, tensors to write its results into
-(chip_smoke.py puts guard rows around them), checked like its inputs.
+"tracker"; the block is also a span `name` (utils/metrics.py). Every
+wrapper takes `out=`, tensors to write its results into (chip_smoke.py puts
+guard rows around them), checked like its inputs.
 
 Descriptors are [N, 8] int32 tensors holding the bit patterns of the 8
 uint32 words (PyTorch has no popcount and no uint32 shifts on the CPU); the
@@ -45,7 +46,6 @@ kernels reinterpret them as uint32.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 import threading
@@ -58,6 +58,7 @@ import torch
 from .._build import PKG_DIR, build_library
 from ..io.vocabulary import (BLOCK_ROW, ROW_BLOCK, ROW_NODE, ROW_WORD,
                              ChildBlocks, pack_child_blocks)
+from ..utils import metrics as M
 from ..utils.device import constant
 
 DESC_WORDS = 8
@@ -90,7 +91,6 @@ _KERNELS = {
 _launchers: dict = {}
 _load_lock = threading.Lock()
 _count_lock = threading.Lock()
-_caller = threading.local()
 
 
 def _popcount8() -> np.ndarray:
@@ -191,7 +191,7 @@ def _launch(wrapper, name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     with _count_lock:
         wrapper.launches += 1
-        who = getattr(_caller, "name", "tracker")
+        who = M.current_caller("tracker")
         wrapper.launches_by[who] = wrapper.launches_by.get(who, 0) + 1
 
 
@@ -558,15 +558,10 @@ def reset_launch_counts() -> None:
         bow_assign.packed_on_the_fly = 0
 
 
-@contextlib.contextmanager
-def launches_counted_as(name: str):
-    """Count this thread's kernel launches under `name` inside the block."""
-    prev = getattr(_caller, "name", "tracker")
-    _caller.name = name
-    try:
-        yield
-    finally:
-        _caller.name = prev
+def launches_counted_as(name: str) -> M.caller_span:
+    """Count this thread's kernel launches under `name` inside the block,
+    which is a span `name` (utils/metrics.py)."""
+    return M.caller_span(name)
 
 
 reset_launch_counts()

@@ -85,7 +85,7 @@ def test_hooks_not_ported_raise(tmp_path):
     "loop"; the keyframe database and the BoW encoder are taken, and a
     keyframe registered through them is in the database with its gate
     nodes."""
-    from orbslam2_tpu_torch.ops import cuda_kernels as CK
+    from orbslam2_tpu_torch.utils.metrics import current_caller
     _, cfg_t = configs()
     _, tmap = _copies(tmp_path)
     k = int(np.flatnonzero(tmap.kf_valid)[-1])
@@ -93,7 +93,7 @@ def test_hooks_not_ported_raise(tmp_path):
 
     class Closer:
         def process(self, kf):
-            seen.append((kf, tmap.lock._is_owned(), CK._caller.name))
+            seen.append((kf, tmap.lock._is_owned(), current_caller()))
 
     lm = TMapper(cfg_t, tmap, loop_closer=Closer(), device="cpu")
     lm.process(k)

@@ -1,5 +1,6 @@
 """utils/metrics.py of both packages: the same records give the same
-summary() and the same dump_jsonl() lines; Timer measures a block."""
+summary() and the same dump_jsonl() lines; the port's span times a block
+(the JAX package's Timer did)."""
 import time
 
 from orbslam2_tpu.utils import metrics as JM
@@ -29,6 +30,6 @@ def test_summary_and_jsonl_match_jax(tmp_path):
 
 
 def test_timer():
-    with TM.Timer() as t:
+    with TM.span("sleep") as t:
         time.sleep(0.02)
     assert 15.0 <= t.elapsed_ms < 2000.0
