@@ -61,6 +61,15 @@ Phases, each printed on its own line:
    (utils/profile_kernels.ba_rows, cg and dense: ms per solve from CUDA
    events, device ms and kernels from torch.profiler, bytes, FLOP and the
    share of the bound);
+   3g. the CG matvec's kernel pair (`schur_matvec`, csrc/schur_matvec.cu)
+   at the global BA's shape (C=512, P=65536, E=1048576, the benchmark
+   cell's) and the local-BA cell's, both as the single-process solver
+   calls it (S x) and as a rank of a sharded one does (s alone): within
+   1e-5 of each output's sum of absolute terms of its plain version on the
+   card, between guard rows, two calls equal bit for bit; S x timed warm
+   and cold, each pass alone, the empty kernels of its grids, its byte
+   bound, the plain version and the composition the solver ran before it
+   (einsums and `seg_sum`);
    3e. the vocabulary trainer (in this process after phase 10, while the
    laps of phase 8 run on): the first 5 scenes of the JAX script's
    descriptor set (one of each image mode, 1000 features) extracted on the
@@ -267,6 +276,12 @@ BA_CELLS = (("local", 16, 2048, 8192), ("global", 128, 8192, 65536))
 PGO_CELL = (421, 2821)
 # the global BA's chunk: (iters1, iters2) of each of its ba_solve calls
 GBA_CHUNK = (1, 2)
+# phase 3g: the CG matvec's kernel pair at the global BA's shape (the
+# benchmark cell's) and at the local-BA cell's, and its limit against the
+# plain version: a share of each output's sum of absolute terms
+# (tests/test_torch_schur_matvec.py says why)
+SCHUR_SHAPES = (("global BA", 512, 65536, 1048576), ("local BA", *BA_CELLS[0][1:]))
+SCHUR_REL = 1e-5
 ORBIT_FRAMES = 48
 SYNC_ORBIT_FRAMES = 12       # synchronous RGB-D and stereo: the orbit's start
 SYNC_SWEEP_FRAMES = 60
@@ -283,7 +298,7 @@ SYNC_MONO_FRAMES = 40
 # this sequence on a CPU, this package 3.36 cm there and 7.12 cm on the
 # card). A trajectory that collapsed would read 25 cm or more.
 GATES = {"rgbd": (0.9, 0.03), "stereo": (0.9, 0.03), "mono": (0.9, 0.08)}
-KERNELS = ("hamming_matrix", "hamming_best2", "bow_assign", "seg_sum")
+KERNELS = ("hamming_matrix", "hamming_best2", "bow_assign", "seg_sum", "schur_matvec")
 N_BLANK = 3            # blank frames of the blackout
 RELOC_TRIES = 4        # frames a relocalization may take
 RELOC_ON_FRAMES = 12   # frames tracked on after it
@@ -671,6 +686,128 @@ def check_seg_sum(CK, PH, BA, PG, lib, timed: bool = True) -> dict:
               f"{row['bound_ops_ms']:.4f} ms)", flush=True)
         rows[name] = row
     return rows
+
+
+def schur_matvec_counts(C: int, P: int, E: int) -> tuple[int, int]:
+    """(bytes, FLOP) of one `schur_matvec` call with Hcc (S x): each input
+    read once and the output written once (W's rows in both plans' orders
+    and each row's other index, the offsets, x, the mask, Hpp^-1, Hcc; S x),
+    and its multiplies and adds."""
+    n_bytes = (2 * E * (18 * 4 + 4) + 4 * (P + C + 2) + 4 * (6 * C + C + 9 * P + 36 * C)
+               + 4 * 6 * C)
+    return n_bytes, E * (2 * 18 + 3 + 2 * 18 + 6) + P * 18 + C * (2 * 36 + 2 * 6)
+
+
+def check_schur_matvec(CK, PH, BA, lib, timed: bool = True) -> dict:
+    """Phase 3g: the CG matvec's kernel pair (`schur_matvec`) on the card
+    against its plain version on the card, within SCHUR_REL of each
+    output's sum of absolute terms, the output written between guard rows,
+    as the single-process solver calls it (S x) and as a rank of a sharded
+    one does (s alone); two calls equal bit for bit. Random rows on the
+    edges of the phase 3b generator at SCHUR_SHAPES. Then, if `timed`, S x's
+    times warm and cold (more sets of W's rows than L2 holds), each pass
+    alone warm, the empty kernels of the two grids, its byte bound, the
+    plain version (cuBLAS's batched gemv and index_add_) and the composition
+    the solver ran before it (einsums and seg_sum). Returns the rows by
+    shape."""
+    rows_out = {}
+    for name, C, P, E in SCHUR_SHAPES:
+        arrays, _ = BA.synthetic_problem(C, P, E, seed=0)
+        e_cam, e_pt = (torch.from_numpy(arrays[k].astype(np.int64)).cuda()
+                       for k in ("e_cam", "e_pt"))
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        W = torch.randn((E, 6, 3), generator=g, device="cuda")
+        # Hpp^-1 laid out as linalg.inv_ex returns it, each matrix column-major
+        Hinv = torch.randn((P, 3, 3), generator=g, device="cuda").mT
+        Hcc = torch.randn((C, 6, 6), generator=g, device="cuda")
+        x = torch.randn((C, 6), generator=g, device="cuda")
+        free = torch.ones((C, 1), device="cuda")
+        free[0] = 0.0  # the fixed camera
+        plan = CK.schur_plan(CK.seg_plan(e_cam, C), CK.seg_plan(e_pt, P))
+        terms = CK.schur_terms(W, Hinv, plan)
+        buf = PH.guarded(C, torch.float32, (6,))
+        gaps, errs = {}, {}
+        for mode, H in (("S x", Hcc), ("s alone", None)):
+            got = CK.schur_matvec(x, terms, plan, free, H, out=buf[1]).clone()
+            again = CK.schur_matvec(x, terms, plan, free, H, out=buf[1])
+            PH.check_guards(f"schur_matvec {name} {mode}", [buf])
+            want = CK.schur_matvec_ref(x, W, Hinv, e_cam, e_pt, free, H)
+            fd, xd = free.double(), x.double().abs()
+            abs_sum = CK.schur_matvec_ref(xd, W.double().abs(), Hinv.double().abs(), e_cam,
+                                          e_pt, fd)
+            if H is not None:
+                abs_sum = (torch.einsum("cij,cj->ci", H.double().abs(), xd * fd)
+                           + abs_sum) * fd
+            gaps[mode] = float(((got.double() - want.double()).abs()
+                                / abs_sum.clamp(min=np.finfo(np.float64).tiny)).max())
+            errs[mode] = float((got - want).abs().max())
+            if not torch.equal(got, again) or not gaps[mode] <= SCHUR_REL:
+                raise AssertionError(
+                    f"schur_matvec {name} {mode}: {gaps[mode]:.3g} of the terms' absolute "
+                    f"sum from the plain version (limit {SCHUR_REL}); two calls equal: "
+                    f"{torch.equal(got, again)}")
+        shape = f"C={C} P={P} E={E}"
+        head = (f"phase 3g: schur_matvec {name} [{shape}] within "
+                f"{', '.join(f'{v:.3g} ({k})' for k, v in gaps.items())} of the terms' "
+                f"absolute sum of the plain version (limit {SCHUR_REL}), two calls equal "
+                f"bit for bit, guard rows intact")
+        if not timed:
+            print(head, flush=True)
+            continue
+        n_bytes, flop = schur_matvec_counts(C, P, E)
+        n_sets = T.cold_count(n_bytes)
+        sets = [CK.schur_terms(W, Hinv, plan) for _ in range(n_sets)]
+        out = buf[1]
+
+        def composition():  # the solver's matvec before the pair
+            xm = x * free
+            u = torch.einsum("eij,ei->ej", W, xm[e_cam])
+            wp = torch.einsum("pij,pj->pi", Hinv, CK.seg_sum(u, plan.pt))
+            s = CK.seg_sum(torch.einsum("eij,ej->ei", W, wp[e_pt]), plan.cam)
+            return (torch.einsum("cij,cj->ci", Hcc, xm) - s) * free
+
+        fn, wp = CK._launcher("schur_matvec"), torch.empty((P, 3), device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        ptr = lambda t: t.data_ptr()  # noqa: E731
+        passes = {"point": (0, terms.by_pt, plan.pt.offsets, plan.pt_cam, x, free,
+                            terms.Hpp_inv, None, wp, P),
+                  "camera": (1, terms.by_cam, plan.cam.offsets, plan.cam_pt, x, free, Hcc, wp,
+                             out, C)}
+        # the grids of csrc/schur_matvec.cu: kPoints (64) points a block, and a
+        # camera a block, of kThreads (256)
+        grids = {"point": -(-P // 64), "camera": C}
+        row = dict(err=errs["S x"], gap=gaps["S x"], shape=shape,
+                   ms=T.time_ms(lambda: CK.schur_matvec(x, terms, plan, free, Hcc, out=out)),
+                   plain_ms=T.time_ms(lambda: CK.schur_matvec_ref(x, W, Hinv, e_cam, e_pt,
+                                                                  free, Hcc), reps=20),
+                   dev=T.queued_ms(lambda: CK.schur_matvec(x, terms, plan, free, Hcc,
+                                                           out=out), reps=20),
+                   cold=T.queued_cold_ms(lambda i: CK.schur_matvec(
+                       x, sets[i], plan, free, Hcc, out=out), n_sets),
+                   plain_dev=T.queued_ms(lambda: CK.schur_matvec_ref(
+                       x, W, Hinv, e_cam, e_pt, free, Hcc), reps=10),
+                   composition_dev=T.queued_ms(composition, reps=10),
+                   copy_dev=T.queued_ms(lambda: CK.schur_terms(W, Hinv, plan), reps=10),
+                   floor=sum(PH.empty_kernel_ms(lib, grids[k], 1, 256) or 0.0
+                             for k in grids),
+                   **{f"{k}_dev": T.queued_ms(lambda a=a: fn(
+                       a[0], *(0 if t is None else ptr(t) for t in a[1:9]), a[9], stream),
+                       reps=20) for k, a in passes.items()},
+                   **T.bound(n_bytes, flop, T.FP32_OPS_PER_S))
+        del sets
+        print(f"{head}; S x per call (CUDA events, back-to-back) kernels {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f} ms; device time (queued) warm "
+              f"{T.fmt_ms(row['dev'])} (point pass {T.fmt_ms(row['point_dev'])}, camera "
+              f"pass {T.fmt_ms(row['camera_dev'])}), cold {T.fmt_ms(row['cold'])}, plain "
+              f"{T.fmt_ms(row['plain_dev'])}, the solver's former composition (einsums "
+              f"and seg_sum) {T.fmt_ms(row['composition_dev'])}, the terms laid out "
+              f"(once an LM iteration) {T.fmt_ms(row['copy_dev'])}, empty "
+              f"kernels of the two grids {row['floor']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({n_bytes} bytes; "
+              f"{flop} FLOP {row['bound_ops_ms']:.4f} ms)", flush=True)
+        rows_out[name] = row
+    return rows_out
 
 
 def _rot_deg(dR: np.ndarray) -> float:
@@ -2508,6 +2645,7 @@ def kernel_checks() -> int:
     check_hamming_best2(CK, PH, lib, 0.0, voc, timed=False)
     check_bow_assign(PH, lib, twotrip, voc, {}, timed=False)
     check_seg_sum(CK, PH, BA, PG, lib, timed=False)
+    check_schur_matvec(CK, PH, BA, lib, timed=False)
     torch.cuda.synchronize()
     return 0
 
@@ -2624,6 +2762,8 @@ def main() -> int:
     lap_seconds("3")
     seg = check_seg_sum(CK, PH, BA, PG, lib)
     lap_seconds("3f")
+    schur = check_schur_matvec(CK, PH, BA, lib)
+    lap_seconds("3g")
     # phase 3b's solve times: the kernel profiler's rows of the same problems
     for row in PK.ba_rows("cuda"):
         print(f"phase 3b (utils/profile_kernels.py): {PK.line(PK.measure(row, mma_per_s))}",
@@ -2857,9 +2997,21 @@ def main() -> int:
          "library_device_ms": r["library_dev"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"]}
         for name, r in seg.items() if r is not row_d]
+    # schur_matvec at the global BA's shape; no single PyTorch call computes it
+    row_e = schur["global BA"]
+    entry_e = entry("schur_matvec", "orbslam2_tpu_torch/csrc/schur_matvec.cu", row_e,
+                    schur, None, replaces="orbslam2_tpu/ops/ba.py:161")
+    entry_e.update({k: row_e[k] for k in ("point_dev", "camera_dev", "composition_dev",
+                                          "copy_dev")})
+    entry_e["other_shapes"] = [
+        {"case": name, "shape": r["shape"], "ms": r["ms"], "device_ms": r["dev"],
+         "cold_device_ms": r["cold"], "floor_ms": r["floor"],
+         "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"]}
+        for name, r in schur.items() if r is not row_e]
     print(json.dumps({"kernels": [
         entry("hamming_matrix", "orbslam2_tpu_torch/csrc/hamming.cu", row_a, ham,
-              row_a["library_ms"]), entry_b, entry_c, entry_d]}), flush=True)
+              row_a["library_ms"]), entry_b, entry_c, entry_d, entry_e]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

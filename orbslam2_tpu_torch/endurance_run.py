@@ -160,9 +160,7 @@ def run(args) -> dict:
         "loop_fused": slam.loop_closer.n_loop_fused,
         "closures": closures,
         "device": device,
-        "launches": {name: dict(getattr(CK, name).launches_by)
-                     for name in ("hamming_matrix", "hamming_best2", "bow_assign",
-                                  "seg_sum")},
+        "launches": {w.__name__: dict(w.launches_by) for w in CK._WRAPPERS},
         "max_keyframes": cfg.max_keyframes,
     }
 

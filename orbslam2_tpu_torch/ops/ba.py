@@ -15,7 +15,9 @@ replaces g2o's sparse BlockSolver_6_3 + OptimizationAlgorithmLevenberg:
   `setMarginalized(true)` Schur trick, src/Optimizer.cpp:707);
 - the reduced camera system S = Hcc - W Hpp^-1 W^T either formed and solved
   by dense Cholesky, or solved matrix-free by block-Jacobi preconditioned
-  conjugate gradient (the form that shards across devices);
+  conjugate gradient (the form that shards across devices), whose product
+  S x is the order-fixed kernel pair `schur_matvec` (two passes over the
+  edges, by point and by camera);
 - Levenberg-Marquardt accept/reject as `torch.where` selects, in the
   reference's schedule: 5 iterations with Huber, the chi2 outlier cut
   (5.991 mono, 7.815 stereo), 10 more without (src/Optimizer.cpp:790-841).
@@ -77,11 +79,13 @@ class BAProblem(NamedTuple):
 class BAPlans(NamedTuple):
     """The segment-sum plans of a problem's edges: by camera, by point, and
     by (point, camera) pair for the dense Schur step's coupling G (None
-    where the solve is the CG one)."""
+    where the solve is the CG one); and the CG matvec's plan (None where
+    the solve is the dense one)."""
 
     cam: CK.SegPlan
     pt: CK.SegPlan
     pair: CK.SegPlan | None
+    schur: CK.SchurPlan | None
 
 
 @spanned("ba.plans")
@@ -90,8 +94,10 @@ def ba_plans(p: BAProblem, dense: bool) -> BAPlans:
     edge is in them, the invalid ones too (they carry zero weight), so the
     order of a sum does not depend on the mask."""
     C, P = p.cam_T.shape[0], p.pts.shape[0]
-    pair = CK.seg_plan(p.e_pt.long() * C + p.e_cam.long(), P * C) if dense else None
-    return BAPlans(CK.seg_plan(p.e_cam, C), CK.seg_plan(p.e_pt, P), pair)
+    cam, pt = CK.seg_plan(p.e_cam, C), CK.seg_plan(p.e_pt, P)
+    if dense:
+        return BAPlans(cam, pt, CK.seg_plan(p.e_pt.long() * C + p.e_cam.long(), P * C), None)
+    return BAPlans(cam, pt, None, CK.schur_plan(cam, pt))
 
 
 class BAResult(NamedTuple):
@@ -216,26 +222,32 @@ def _lm_iteration(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx,
     if dense_schur:
         dx_c = _dense_schur_step(p, plans, Hcc_d, Hpp_inv, W, rhs, free_cam)
     else:
-        dx_c = _pcg(p, plans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters, group)
+        dx_c = _pcg(plans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters, group)
     return _apply_step(p, plans, cam_T, pts, lam, e_active, fx, fy, cx, cy, bf,
                        robust, dx_c, Hpp_inv, W, bp, m, cost, free_cam, group)
 
 
-@spanned("ba.pcg")
-def _pcg(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam,
-         cg_iters: int, group=None):
-    """Block-Jacobi preconditioned CG on the reduced camera system, matrix
-    free: S @ x costs two edge gathers and two segment sums."""
-    @spanned("ba.pcg.matvec")
-    def S_mv(x):
-        x = x * free_cam
-        u = torch.einsum("eij,ei->ej", W, x[p.e_cam])          # [E, 3] = W^T x
-        wp = torch.einsum("pij,pj->pi", Hpp_inv, CK.seg_sum(u, plans.pt))
-        ze = torch.einsum("eij,ej->ei", W, wp[p.e_pt])         # [E, 6]
-        y = (torch.einsum("cij,cj->ci", Hcc_d, x)
-             - COL.all_reduce([CK.seg_sum(ze, plans.cam)], group)[0])
-        return y * free_cam
+@spanned("ba.pcg.matvec")
+def _schur_mv(x, plans: BAPlans, Hcc_d, terms: CK.SchurTerms, free_cam, group=None):
+    """S x, S = Hcc_d - W Hpp^-1 W^T the reduced camera system, matrix free,
+    restricted to the free cameras: one order-fixed kernel pair
+    (`schur_matvec`). A rank of a sharded solve takes the pair's coupling
+    part alone and sums it over the ranks before subtracting it."""
+    if group is None:
+        return CK.schur_matvec(x, terms, plans.schur, free_cam, Hcc_d)
+    x = x * free_cam
+    s = CK.schur_matvec(x, terms, plans.schur, free_cam)
+    y = torch.einsum("cij,cj->ci", Hcc_d, x) - COL.all_reduce([s], group)[0]
+    return y * free_cam
 
+
+@spanned("ba.pcg")
+def _pcg(plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
+         group=None):
+    """Block-Jacobi preconditioned CG on the reduced camera system, matrix
+    free: S @ x costs two passes over the edges (`_schur_mv`), on terms laid
+    out for them once (`schur_terms`)."""
+    terms = CK.schur_terms(W, Hpp_inv, plans.schur)
     eye6 = torch.eye(6, device=Hcc_d.device)
     Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * eye6)[0]
 
@@ -248,7 +260,7 @@ def _pcg(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam,
     pdir = z
     rz = torch.sum(r * z)
     for _ in range(cg_iters):
-        Ap = S_mv(pdir)
+        Ap = _schur_mv(pdir, plans, Hcc_d, terms, free_cam, group)
         denom = torch.sum(pdir * Ap)
         # Krylov breakdown guard: along a near-null (gauge) direction
         # denom ~ 0; freeze the iterate there instead of dividing

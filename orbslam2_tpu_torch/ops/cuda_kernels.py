@@ -23,6 +23,13 @@ ctypes:
   the CPU's bit for bit, and repeat run to run as the JAX package's do.
   Three paths, chosen from the shapes (`seg_sum_path`), bring the rows to
   the adder by other routes and add in that one order.
+- `schur_matvec` (csrc/schur_matvec.cu): the BA solver's CG matvec, the
+  reduced camera system's product (the mask, gathers, batched products and
+  two `jax.ops.segment_sum`s of the JAX package's `_pcg`), as a pair of
+  kernels, one pass by point and one by camera, that keep the per-edge
+  products on chip and add in `seg_sum`'s order. Plain version
+  `schur_matvec_ref`: the card's products round otherwise, so the two
+  agree within float32 rounding, and each repeats itself bit for bit.
 - `bow_assign` (csrc/bow_assign.cu): the vocabulary-tree descent of
   orbslam2_tpu/ops/bow.py `assign_words` (an XLA program with an inline
   XOR-popcount over gathered children, no Pallas source), one warp a
@@ -87,6 +94,8 @@ _KERNELS = {
                    [_PTR] * 6 + [_INT] * 7 + [_PTR]),
     "seg_sum": (_CSRC / "seg_sum.cu", (), "seg_sum_launch",
                 [_PTR] * 5 + [_INT] * 5 + [_PTR]),
+    "schur_matvec": (_CSRC / "schur_matvec.cu", (), "schur_matvec_launch",
+                     [_INT] + [_PTR] * 8 + [_INT, _PTR]),
 }
 _launchers: dict = {}
 _load_lock = threading.Lock()
@@ -547,7 +556,118 @@ def seg_sum_grid(x: torch.Tensor, out: torch.Tensor) -> tuple[int, int]:
     return blocks.value, threads.value
 
 
-_WRAPPERS = (hamming_matrix, hamming_best2, bow_assign, seg_sum)
+class SchurPlan(NamedTuple):
+    """The order of the CG matvec's two passes over a BA problem's edges,
+    built once a solve: the segment-sum plans by camera and by point, and
+    each edge's other index in each plan's order."""
+
+    cam: SegPlan
+    pt: SegPlan
+    cam_pt: torch.Tensor  # [E] int32: the point of the edge at cam.perm[k]
+    pt_cam: torch.Tensor  # [E] int32: the camera of the edge at pt.perm[k]
+
+
+def schur_plan(cam: SegPlan, pt: SegPlan) -> SchurPlan:
+    """The matvec's plan from the plans by camera and by point of the same
+    edges, on their device without a readback."""
+    return SchurPlan(cam, pt, pt.idx[cam.perm.long()].to(torch.int32),
+                     cam.idx[pt.perm.long()].to(torch.int32))
+
+
+class SchurTerms(NamedTuple):
+    """An LM iteration's terms of the matvec, the couplings W [E, 6, 3] and
+    the point blocks' inverses Hpp_inv [P, 3, 3], as the kernels read them:
+    on a card Hpp_inv contiguous (linalg.inv_ex returns each matrix
+    column-major) and W's rows copied into the camera plan's and the point
+    plan's order, so that each pass reads its rows in the order it adds
+    them; on the CPU as given, for the plain version (by_cam, by_pt None)."""
+
+    W: torch.Tensor
+    Hpp_inv: torch.Tensor
+    by_cam: torch.Tensor | None
+    by_pt: torch.Tensor | None
+
+
+def schur_terms(W: torch.Tensor, Hpp_inv: torch.Tensor, plan: SchurPlan) -> SchurTerms:
+    """The matvec's terms for the CG steps of one LM iteration (three copies
+    on a card, none on the CPU)."""
+    if W.device.type == "cpu":
+        return SchurTerms(W, Hpp_inv, None, None)
+    return SchurTerms(W, Hpp_inv.contiguous(), W.index_select(0, plan.cam.perm),
+                      W.index_select(0, plan.pt.perm))
+
+
+def schur_matvec_ref(x: torch.Tensor, W: torch.Tensor, Hpp_inv: torch.Tensor,
+                     e_cam: torch.Tensor, e_pt: torch.Tensor, free: torch.Tensor,
+                     Hcc: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of `schur_matvec`: the mask, the edge gathers, the
+    batched products and two segment sums (`seg_sum_ref`)."""
+    x = x * free
+    u = torch.einsum("eij,ei->ej", W, x[e_cam])                       # [E, 3]
+    wp = torch.einsum("pij,pj->pi", Hpp_inv,
+                      seg_sum_ref(u, e_pt, Hpp_inv.shape[0]))         # [P, 3]
+    ze = torch.einsum("eij,ej->ei", W, wp[e_pt])                      # [E, 6]
+    s = seg_sum_ref(ze, e_cam, x.shape[0])
+    return s if Hcc is None else (torch.einsum("cij,cj->ci", Hcc, x) - s) * free
+
+
+def schur_matvec(x: torch.Tensor, terms: SchurTerms, plan: SchurPlan, free: torch.Tensor,
+                 Hcc: torch.Tensor | None = None, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """The reduced camera system's product, S x = (Hcc x - s) free, with
+    x masked to the free cameras (x free) first; without Hcc, its coupling
+    part s alone, which the ranks of a sharded solve add up before the
+    rest. s [C, 6]: s[c] = the sum over the edges e of camera c of W_e
+    wp[p(e)], where wp[p] = Hpp_inv[p] (the sum over the edges e of point p
+    of W_e^T x[c(e)]). x: [C, 6]; terms: `schur_terms` of W [E, 6, 3] and
+    Hpp_inv [P, 3, 3]; free: [C, 1], 1 for a free camera, else 0; Hcc:
+    [C, 6, 6]; all float32, contiguous on a card; plan: the edges'
+    SchurPlan. Every sum adds in increasing edge order within its segment.
+    out: a contiguous [C, 6] float32 tensor to write into."""
+    C, P, E = plan.cam.n, plan.pt.n, plan.cam.perm.shape[0]
+    on_card = x.device.type == "cuda"
+    named = [("x", x, (C, 6)), ("W", terms.W, (E, 6, 3)),
+             ("Hpp_inv", terms.Hpp_inv, (P, 3, 3)), ("free", free, (C, 1))]
+    if Hcc is not None:
+        named.append(("Hcc", Hcc, (C, 6, 6)))
+    if on_card:
+        named += [("terms.by_cam", terms.by_cam, (E, 6, 3)),
+                  ("terms.by_pt", terms.by_pt, (E, 6, 3))]
+    for name, t, shape in named:
+        if t is None or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"schur_matvec: {name} expected float32 {shape}, got "
+                             f"{getattr(t, 'dtype', None)} {tuple(getattr(t, 'shape', ()))}")
+        if t.device != x.device:
+            raise ValueError(f"schur_matvec: {name} on {t.device}, x on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no schur_matvec kernel for device {x.device}")
+    if any(t.device != x.device for t in (*plan.cam[:4], *plan.pt[:4], *plan[2:])):
+        raise ValueError(f"schur_matvec: the plan is on {plan.cam.perm.device}, x on "
+                         f"{x.device}")
+    (out,) = _outputs("schur_matvec", out, [((C, 6), torch.float32)], x.device)
+    if not on_card:
+        return out.copy_(schur_matvec_ref(x, terms.W, terms.Hpp_inv, plan.cam.idx,
+                                          plan.pt.idx, free, Hcc))
+    # a copy here would be a launch a CG step: schur_terms makes its copies
+    # once an LM iteration
+    if not all(t.is_contiguous() for name, t, _ in named if name != "W"):
+        raise ValueError("schur_matvec: the tensors on the card must be contiguous")
+    if any(t.data_ptr() % 8 for t in (x, terms.by_cam, terms.by_pt)):
+        raise ValueError("schur_matvec: x and W's rows must be 8-byte aligned")
+    wp = torch.empty((P, 3), dtype=torch.float32, device=x.device)
+    if P:  # the point pass (no launch where there is nothing to compute)
+        _launch(schur_matvec, "schur_matvec", x.device, 0, terms.by_pt.data_ptr(),
+                plan.pt.offsets.data_ptr(), plan.pt_cam.data_ptr(), x.data_ptr(),
+                free.data_ptr(), terms.Hpp_inv.data_ptr(), 0, wp.data_ptr(), P)
+    if C:  # the camera pass
+        _launch(schur_matvec, "schur_matvec", x.device, 1, terms.by_cam.data_ptr(),
+                plan.cam.offsets.data_ptr(), plan.cam_pt.data_ptr(), x.data_ptr(),
+                free.data_ptr(), 0 if Hcc is None else Hcc.data_ptr(), wp.data_ptr(),
+                out.data_ptr(), C)
+    return out
+
+
+_WRAPPERS = (hamming_matrix, hamming_best2, bow_assign, seg_sum, schur_matvec)
 
 
 def reset_launch_counts() -> None:
