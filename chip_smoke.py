@@ -70,6 +70,16 @@ Phases, each printed on its own line:
    and cold, each pass alone, the empty kernels of its grids, its byte
    bound, the plain version and the composition the solver ran before it
    (einsums and `seg_sum`);
+   3h. the BA solver's per-edge linearization (`ba_edges`,
+   csrc/ba_edges.cu) at the global BA's shape, in its three modes (the LM
+   iteration's blocks, the trial cost, the classification's chi2 and z),
+   with and without Huber: within `ba_edges_bound` at BA_EDGES_UNITS
+   rounding units of its plain version on the card, between guard rows,
+   two calls equal bit for bit, an edge of weight 0 all zeros; each mode
+   timed warm and cold beside its byte bound, the empty kernel of its grid
+   and the plain version (the solver's former composition); then one GBA
+   chunk's CG ba_solve at that shape launches it 8 times (3 LM iterations,
+   3 trial costs, 2 classifications);
    3e. the vocabulary trainer (in this process after phase 10, while the
    laps of phase 8 run on): the first 5 scenes of the JAX script's
    descriptor set (one of each image mode, 1000 features) extracted on the
@@ -261,6 +271,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -282,6 +293,11 @@ GBA_CHUNK = (1, 2)
 # (tests/test_torch_schur_matvec.py says why)
 SCHUR_SHAPES = (("global BA", 512, 65536, 1048576), ("local BA", *BA_CELLS[0][1:]))
 SCHUR_REL = 1e-5
+# phase 3h: the per-edge linearization at the global BA's shape, and its
+# limit against the plain version: the units of float32 rounding of
+# `ba_edges_bound` (tests/test_torch_ba_edges.py says why)
+BA_EDGES_SHAPE = SCHUR_SHAPES[0][1:]
+BA_EDGES_UNITS = 32
 ORBIT_FRAMES = 48
 SYNC_ORBIT_FRAMES = 12       # synchronous RGB-D and stereo: the orbit's start
 SYNC_SWEEP_FRAMES = 60
@@ -298,7 +314,8 @@ SYNC_MONO_FRAMES = 40
 # this sequence on a CPU, this package 3.36 cm there and 7.12 cm on the
 # card). A trajectory that collapsed would read 25 cm or more.
 GATES = {"rgbd": (0.9, 0.03), "stereo": (0.9, 0.03), "mono": (0.9, 0.08)}
-KERNELS = ("hamming_matrix", "hamming_best2", "bow_assign", "seg_sum", "schur_matvec")
+KERNELS = ("hamming_matrix", "hamming_best2", "bow_assign", "seg_sum", "schur_matvec",
+           "ba_edges")
 N_BLANK = 3            # blank frames of the blackout
 RELOC_TRIES = 4        # frames a relocalization may take
 RELOC_ON_FRAMES = 12   # frames tracked on after it
@@ -808,6 +825,111 @@ def check_schur_matvec(CK, PH, BA, lib, timed: bool = True) -> dict:
               f"{flop} FLOP {row['bound_ops_ms']:.4f} ms)", flush=True)
         rows_out[name] = row
     return rows_out
+
+
+def ba_edges_counts(CK, C: int, P: int, E: int, mode: str) -> tuple[int, int]:
+    """(bytes, FLOP) of one `ba_edges` call: an edge's fields read once
+    (e_cam and e_pt as int64, e_obs, e_stereo, e_info, and e_active where the
+    mode reads it: 34 bytes, 33 for "chi2"), the poses and the points once,
+    the mode's outputs written once (296 bytes an edge for "blocks", 4 for
+    "cost", 8 for "chi2"); the kernel's multiplies and adds as written in
+    csrc/ba_edges.cu (about 530 an edge for the blocks, 45 for the cost, 40
+    for chi2 and z)."""
+    read = {"blocks": 34, "cost": 34, "chi2": 33}[mode]
+    written = 4 * sum(math.prod(CK._EDGE_ROWS[k]) for k in CK.BA_EDGE_OUTPUTS[mode])
+    flop = {"blocks": 530, "cost": 45, "chi2": 40}[mode]
+    return E * (read + written) + 48 * C + 12 * P, E * flop
+
+
+def check_ba_edges(CK, PH, BA, lib, timed: bool = True) -> dict:
+    """Phase 3h: the per-edge linearization (`ba_edges`) on the card against
+    its plain version on the card, within `ba_edges_bound` at BA_EDGES_UNITS
+    rounding units, the outputs written between
+    guard rows, in each mode with and without Huber; two calls equal bit
+    for bit, an edge of weight 0 zeros in every block. On the problem of
+    `ops/ba.synthetic_problem` at BA_EDGES_SHAPE. Then, if `timed`, each
+    mode's times warm and cold (more sets of the edges' fields than L2
+    holds), the empty kernel of its grid, its byte bound and the plain
+    version, and the launches of one GBA chunk's CG ba_solve. Returns the
+    rows by mode."""
+    C, P, E = BA_EDGES_SHAPE
+    arrays, intr = BA.synthetic_problem(C, P, E, seed=0)
+    prob = BA.problem_from_numpy(arrays, torch.device("cuda"))
+    inputs = (prob.cam_T, prob.pts, prob.e_cam, prob.e_pt, prob.e_obs, prob.e_stereo,
+              prob.e_info, prob.e_valid)
+    shape = f"C={C} P={P} E={E}"
+    rows = {}
+    for mode in CK.BA_EDGE_OUTPUTS:
+        names = CK.BA_EDGE_OUTPUTS[mode]
+        bufs = [PH.guarded(E, torch.float32, CK._EDGE_ROWS[k]) for k in names]
+        outs = [b[1] for b in bufs]
+        gaps, err = {}, 0.0
+        for robust in (True, False):
+            got = [t.clone() for t in CK.ba_edges(mode, *inputs, intr, robust, out=outs)]
+            again = CK.ba_edges(mode, *inputs, intr, robust, out=outs)
+            PH.check_guards(f"ba_edges {mode}", bufs)
+            want = CK.ba_edges_ref(mode, *inputs, intr, robust)
+            bound = CK.ba_edges_bound(mode, *inputs, intr, robust, BA_EDGES_UNITS)
+            for name, g, a, w, b in zip(names, got, again, want, bound):
+                gap = float(((g.double() - w.double()).abs() / b).nan_to_num(0.0).max())
+                gaps[f"{name}{'' if robust else ' plain'}"] = gap
+                err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+                if not torch.equal(g, a) or not gap <= 1.0:
+                    raise AssertionError(
+                        f"ba_edges {mode} {name} robust={robust}: {gap:.3g} of the bound "
+                        f"of {BA_EDGES_UNITS} rounding units from the plain version; two "
+                        f"calls equal: {torch.equal(g, a)}")
+            if mode == "blocks":
+                zero = got[5] == 0
+                if not all(bool((g[zero] == 0).all()) for g in got[:5]):
+                    raise AssertionError("ba_edges blocks: an edge of weight 0 wrote a "
+                                         "non-zero block")
+            del got, again, want, bound
+        head = (f"phase 3h: ba_edges {mode} [{shape}] within "
+                f"{', '.join(f'{v:.3g} ({k})' for k, v in gaps.items())} of the bound of "
+                f"{BA_EDGES_UNITS} rounding units from the plain version, two calls equal "
+                f"bit for bit, guard rows intact")
+        if not timed:
+            print(head, flush=True)
+            continue
+        n_bytes, flop = ba_edges_counts(CK, C, P, E, mode)
+        n_sets = T.cold_count(n_bytes - 4 * E * sum(
+            math.prod(CK._EDGE_ROWS[k]) for k in names))  # the fields, not the outputs
+        sets = [tuple(t.clone() if t.shape[0] == E else t for t in inputs)
+                for _ in range(n_sets)]
+        row = dict(err=err, gap=max(gaps.values()), shape=shape,
+                   ms=T.time_ms(lambda: CK.ba_edges(mode, *inputs, intr, True, out=outs)),
+                   plain_ms=T.time_ms(lambda: CK.ba_edges_ref(mode, *inputs, intr, True),
+                                      reps=10),
+                   dev=T.queued_ms(lambda: CK.ba_edges(mode, *inputs, intr, True,
+                                                       out=outs), reps=20),
+                   cold=T.queued_cold_ms(lambda i: CK.ba_edges(mode, *sets[i], intr, True,
+                                                               out=outs), n_sets),
+                   plain_dev=T.queued_ms(lambda: CK.ba_edges_ref(mode, *inputs, intr, True),
+                                         reps=5),
+                   floor=PH.empty_kernel_ms(lib, -(-E // 256), 1, 256) or 0.0,
+                   **T.bound(n_bytes, flop, T.FP32_OPS_PER_S))
+        del sets
+        print(f"{head}; per call (CUDA events, back-to-back) kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms; device time (queued) warm "
+              f"{T.fmt_ms(row['dev'])}, cold {T.fmt_ms(row['cold'])}, plain (the solver's "
+              f"former composition) {T.fmt_ms(row['plain_dev'])}, empty kernel of the "
+              f"grid {row['floor']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} ({n_bytes} bytes; {flop} FLOP "
+              f"{row['bound_ops_ms']:.4f} ms)", flush=True)
+        rows[mode] = row
+    if timed:  # the main path: one GBA chunk of the cell's CG solve
+        before = CK.ba_edges.launches
+        BA.ba_solve(prob, *intr, iters1=GBA_CHUNK[0], iters2=GBA_CHUNK[1], solver="cg")
+        torch.cuda.synchronize()
+        n = CK.ba_edges.launches - before
+        want = 2 * sum(GBA_CHUNK) + 2  # a blocks and a trial cost an LM iteration
+        print(f"phase 3h: one GBA chunk (CG ba_solve, {GBA_CHUNK[0]} + {GBA_CHUNK[1]} LM "
+              f"iterations) at [{shape}] launched ba_edges {n} times (want {want})",
+              flush=True)
+        if n != want:
+            raise AssertionError(f"ba_edges: {n} launches in a GBA chunk, want {want}")
+    return rows
 
 
 def _rot_deg(dR: np.ndarray) -> float:
@@ -2646,6 +2768,7 @@ def kernel_checks() -> int:
     check_bow_assign(PH, lib, twotrip, voc, {}, timed=False)
     check_seg_sum(CK, PH, BA, PG, lib, timed=False)
     check_schur_matvec(CK, PH, BA, lib, timed=False)
+    check_ba_edges(CK, PH, BA, lib, timed=False)
     torch.cuda.synchronize()
     return 0
 
@@ -2764,6 +2887,8 @@ def main() -> int:
     lap_seconds("3f")
     schur = check_schur_matvec(CK, PH, BA, lib)
     lap_seconds("3g")
+    edges = check_ba_edges(CK, PH, BA, lib)
+    lap_seconds("3h")
     # phase 3b's solve times: the kernel profiler's rows of the same problems
     for row in PK.ba_rows("cuda"):
         print(f"phase 3b (utils/profile_kernels.py): {PK.line(PK.measure(row, mma_per_s))}",
@@ -3009,9 +3134,22 @@ def main() -> int:
          "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"]}
         for name, r in schur.items() if r is not row_e]
+    # ba_edges in the LM iteration's mode at the global BA's shape; no single
+    # PyTorch call computes it (the JAX package's _edge_terms and the block
+    # products of _lm_iteration, XLA ops)
+    row_f = edges["blocks"]
+    entry_f = entry("ba_edges", "orbslam2_tpu_torch/csrc/ba_edges.cu", row_f, edges, None,
+                    replaces="orbslam2_tpu/ops/ba.py:71")
+    entry_f["other_shapes"] = [
+        {"case": mode, "shape": r["shape"], "ms": r["ms"], "device_ms": r["dev"],
+         "cold_device_ms": r["cold"], "floor_ms": r["floor"],
+         "plain_device_ms": r["plain_dev"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"]}
+        for mode, r in edges.items() if r is not row_f]
     print(json.dumps({"kernels": [
         entry("hamming_matrix", "orbslam2_tpu_torch/csrc/hamming.cu", row_a, ham,
-              row_a["library_ms"]), entry_b, entry_c, entry_d, entry_e]}), flush=True)
+              row_a["library_ms"]), entry_b, entry_c, entry_d, entry_e, entry_f]}),
+          flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

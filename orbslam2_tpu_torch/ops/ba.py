@@ -4,13 +4,18 @@ Counterpart of orbslam2_tpu/ops/ba.py (Optimizer::LocalBundleAdjustment,
 src/Optimizer.cpp:564-941, and the BundleAdjustment core, :44-304), which
 replaces g2o's sparse BlockSolver_6_3 + OptimizationAlgorithmLevenberg:
 
-- residuals and Jacobians of every observation edge in one batch (mono and
-  stereo edges unified, ops/ba_core.py);
+- the linearization of every observation edge in one batch (mono and
+  stereo edges unified, the mathematics of ops/ba_core.py): the kernel
+  `ba_edges` of ops/cuda_kernels.py, one thread an edge, keeps each edge's
+  residual, Jacobians and weight in registers and writes only its blocks
+  (Hcc_e, bc_e, Hpp_e, bp_e, the coupling W [E,6,3], the weight and the
+  cost term), once an LM iteration; the trial cost and the outlier
+  classification run it without Jacobians. On the CPU its plain version;
 - block assembly by segment sums over the edge list (`seg_sum`, the
   order-fixed kernel of ops/cuda_kernels.py, so a solve repeats itself bit
-  for bit as the JAX package's does): Hcc [C,6,6], Hpp [P,3,3], the
-  per-edge coupling W [E,6,3]. The edge structure is fixed through a
-  solve, so the sums' plans (`BAPlans`) are built once a solve;
+  for bit as the JAX package's does): Hcc [C,6,6], Hpp [P,3,3]. The edge
+  structure is fixed through a solve, so the sums' plans (`BAPlans`) are
+  built once a solve;
 - point marginalization by batched 3x3 inverses (the reference's
   `setMarginalized(true)` Schur trick, src/Optimizer.cpp:707);
 - the reduced camera system S = Hcc - W Hpp^-1 W^T either formed and solved
@@ -27,9 +32,9 @@ iterations are Python loops of device ops.
 
 Each phase is a span (utils/metrics.py), opened where its ops are launched:
 `ba.solve`, `ba.plans`, `ba.lm` (an LM iteration), `ba.edge_terms` (every
-residual and Jacobian batch: the LM's terms, the trial cost, the
-classification), `ba.assemble` (the block sums, W, the Hpp inverse and the
-Schur right-hand side), `ba.pcg` with `ba.pcg.matvec` (one a CG step) or
+`ba_edges` call: the LM's blocks, the trial cost, the classification),
+`ba.assemble` (the block sums, the Hpp inverse and the Schur right-hand
+side), `ba.pcg` with `ba.pcg.matvec` (one a CG step) or
 `ba.dense_schur`, `ba.apply` (back-substitution and accept/reject) and
 `ba.classify`. While spans are recorded, a device trace's kernels and idle
 gaps can be put down to the phase that launched them.
@@ -55,8 +60,6 @@ from ..utils.metrics import span, spanned
 from . import ba_core as BC
 from . import cuda_kernels as CK
 
-MIN_DEPTH = 0.05    # meters; below this J ~ 1/z^2 risks f32 overflow
-CHI2_TRIM = 1e5     # edges beyond this are excluded from the normal system
 _CHOL_BLOCK = 64    # rows of a diagonal block of the CPU Cholesky (_cholesky)
 
 
@@ -108,32 +111,15 @@ class BAResult(NamedTuple):
 
 
 @spanned("ba.edge_terms")
-def _edge_terms(p: BAProblem, cam_T, pts, e_active, fx, fy, cx, cy, bf, robust):
-    """Residuals, Jacobians and weights for every edge."""
-    Te = cam_T[p.e_cam]                      # [E, 3, 4]
-    Xe = pts[p.e_pt]                         # [E, 3]
-    R, t = Te[..., :3], Te[..., 3]
-    pc = torch.einsum("eij,ej->ei", R, Xe) + t
-    z = pc[:, 2]
-    iz = 1.0 / torch.where(z.abs() > 1e-6, z, 1e-6)
-    u = fx * pc[:, 0] * iz + cx
-    v = fy * pc[:, 1] * iz + cy
-    ur = u - bf * iz
-    res = torch.stack(
-        [u - p.e_obs[:, 0], v - p.e_obs[:, 1],
-         torch.where(p.e_stereo, ur - p.e_obs[:, 2], 0.0)], dim=-1)
-    Jp, Jpc = BC.residual_jacobians(pc, p.e_stereo, fx, fy, bf)
-    Jpt = Jpc @ R                            # world-point Jacobian [E, 3, 3]
-    chi2, w = BC.chi2_and_weight(res, p.e_stereo, p.e_info, robust)
-    # depth floor + hopeless-outlier trim: near-zero depth makes J ~ 1/z^2
-    # overflow f32 in the H assembly
-    usable = e_active & (z > MIN_DEPTH) & (chi2 < CHI2_TRIM)
-    m = usable.to(torch.float32) * w * p.e_info
-    # the accept/reject objective is the (robust) cost the step models
-    rho = BC.robust_cost(chi2, p.e_stereo, robust)
-    cost = torch.sum(torch.where(e_active & (z > MIN_DEPTH),
-                                 torch.clamp(rho, max=CHI2_TRIM), 0.0))
-    return res, Jp, Jpt, m, cost, chi2, z
+def _edge_terms(p: BAProblem, cam_T, pts, e_active, fx, fy, cx, cy, bf, robust,
+                mode: str):
+    """One `ba_edges` call over every edge in `mode` ("blocks", "cost" or
+    "chi2"): its outputs, the per-edge cost summed to the objective."""
+    terms = CK.ba_edges(mode, cam_T, pts, p.e_cam, p.e_pt, p.e_obs, p.e_stereo,
+                        p.e_info, e_active, (fx, fy, cx, cy, bf), robust)
+    if mode == "chi2":
+        return terms
+    return (*terms[:-1], torch.sum(terms[-1]))
 
 
 def _cholesky(S: torch.Tensor) -> torch.Tensor:
@@ -191,20 +177,17 @@ def _dense_schur_step(p: BAProblem, plans: BAPlans, Hcc_d, Hpp_inv, W, rhs,
 def _lm_iteration(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx,
                   fy, cx, cy, bf, robust, cg_iters: int, dense_schur: bool = False,
                   group=None):
-    res, Jp, Jpt, m, cost, _, _ = _edge_terms(
-        p, cam_T, pts, e_active, fx, fy, cx, cy, bf, robust)
+    Hcc_e, bc_e, Hpp_e, bp_e, W, m, cost = _edge_terms(
+        p, cam_T, pts, e_active, fx, fy, cx, cy, bf, robust, "blocks")
 
     free_cam = (p.cam_valid & ~p.cam_fixed).to(torch.float32)[:, None]
 
     with span("ba.assemble"):
         # block assembly (segment sums over the edge list)
-        Jpm = Jp * m[:, None, None]
-        Jptm = Jpt * m[:, None, None]
-        Hcc = CK.seg_sum(Jpm.transpose(1, 2) @ Jp, plans.cam)
-        bc = CK.seg_sum(-torch.einsum("eri,er->ei", Jpm, res), plans.cam)
-        Hpp = CK.seg_sum(Jptm.transpose(1, 2) @ Jpt, plans.pt)
-        bp = CK.seg_sum(-torch.einsum("eri,er->ei", Jptm, res), plans.pt)
-        W = Jpm.transpose(1, 2) @ Jpt  # [E, 6, 3]
+        Hcc = CK.seg_sum(Hcc_e, plans.cam)
+        bc = CK.seg_sum(bc_e, plans.cam)
+        Hpp = CK.seg_sum(Hpp_e, plans.pt)
+        bp = CK.seg_sum(bp_e, plans.pt)
 
         # LM damping (multiplicative on block diagonals)
         eye6 = torch.eye(6, device=cam_T.device)
@@ -292,8 +275,8 @@ def _apply_step(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx, fy,
 
     cam_T_new = se3.retract(cam_T, dx_c * free_cam)
     pts_new = pts + dx_p
-    cost_new = COL.all_reduce([_edge_terms(p, cam_T_new, pts_new, e_active, fx,
-                                           fy, cx, cy, bf, robust)[4]], group)[0]
+    cost_new = COL.all_reduce(list(_edge_terms(p, cam_T_new, pts_new, e_active, fx,
+                                               fy, cx, cy, bf, robust, "cost")), group)[0]
 
     accept = cost_new < cost
     cam_T = torch.where(accept, cam_T_new, cam_T)
@@ -305,10 +288,9 @@ def _apply_step(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx, fy,
 
 @spanned("ba.classify")
 def _classify(p: BAProblem, cam_T, pts, fx, fy, cx, cy, bf):
-    _, _, _, _, _, chi2, z = _edge_terms(
-        p, cam_T, pts, p.e_valid, fx, fy, cx, cy, bf, robust=False)
+    chi2, z = _edge_terms(p, cam_T, pts, p.e_valid, fx, fy, cx, cy, bf, False, "chi2")
     th = torch.where(p.e_stereo, BC.CHI2_STEREO, BC.CHI2_MONO)
-    return p.e_valid & (chi2 <= th) & (z > MIN_DEPTH)
+    return p.e_valid & (chi2 <= th) & (z > CK.BA_MIN_DEPTH)
 
 
 # [P, C, 6, 3] f32 budget for the formed per-point camera coupling; above

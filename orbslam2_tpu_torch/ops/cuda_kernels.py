@@ -30,6 +30,19 @@ ctypes:
   products on chip and add in `seg_sum`'s order. Plain version
   `schur_matvec_ref`: the card's products round otherwise, so the two
   agree within float32 rounding, and each repeats itself bit for bit.
+- `ba_edges` (csrc/ba_edges.cu): the BA solver's per-edge linearization,
+  in place of the JAX package's orbslam2_tpu/ops/ba.py `_edge_terms` and
+  the block products of its `_lm_iteration` (XLA ops, no Pallas source),
+  which the port ran as gathers and cuBLAS batched gemms and gemvs over a
+  million tiny matrices. One thread an edge keeps the residual, the
+  Jacobians and the weights in registers and writes only the edge's blocks
+  of the normal equations (Hcc, bc, Hpp, bp, W, the weight m, the cost
+  term: mode "blocks"), or its cost term, or chi2 and z, with no Jacobian
+  (modes "cost", "chi2"). What bounds it is the bytes: 34 read and 296
+  written an edge in "blocks", 103 us at the global BA's 1M edges at 3.35
+  TB/s. Plain version `ba_edges_ref`, the former composition: the card's
+  products round otherwise, so the two agree within `ba_edges_bound`, and
+  each repeats itself bit for bit.
 - `bow_assign` (csrc/bow_assign.cu): the vocabulary-tree descent of
   orbslam2_tpu/ops/bow.py `assign_words` (an XLA program with an inline
   XOR-popcount over gathered children, no Pallas source), one warp a
@@ -67,6 +80,7 @@ from ..io.vocabulary import (BLOCK_ROW, ROW_BLOCK, ROW_NODE, ROW_WORD,
                              ChildBlocks, pack_child_blocks)
 from ..utils import metrics as M
 from ..utils.device import constant
+from . import ba_core as BC
 
 DESC_WORDS = 8
 # element budget of the plain version's [rows, B, 32] byte intermediate:
@@ -96,6 +110,9 @@ _KERNELS = {
                 [_PTR] * 5 + [_INT] * 5 + [_PTR]),
     "schur_matvec": (_CSRC / "schur_matvec.cu", (), "schur_matvec_launch",
                      [_INT] + [_PTR] * 8 + [_INT, _PTR]),
+    "ba_edges": (_CSRC / "ba_edges.cu", (), "ba_edges_launch",
+                 [_INT] + [_PTR] * 8 + [ctypes.POINTER(ctypes.c_float)] * 2 + [_INT]
+                 + [_PTR] * 9 + [_INT, _PTR]),
 }
 _launchers: dict = {}
 _load_lock = threading.Lock()
@@ -667,7 +684,194 @@ def schur_matvec(x: torch.Tensor, terms: SchurTerms, plan: SchurPlan, free: torc
     return out
 
 
-_WRAPPERS = (hamming_matrix, hamming_best2, bow_assign, seg_sum, schur_matvec)
+# ba_edges: each mode's outputs, in the order it returns them, and the
+# shape of an edge's row of each
+BA_EDGE_OUTPUTS = {"blocks": ("Hcc", "bc", "Hpp", "bp", "W", "m", "cost"),
+                   "cost": ("cost",), "chi2": ("chi2", "z")}
+_EDGE_ROWS = {"Hcc": (6, 6), "bc": (6,), "Hpp": (3, 3), "bp": (3,), "W": (6, 3), "m": (),
+              "cost": (), "chi2": (), "z": ()}
+BA_MIN_DEPTH = 0.05  # meters; below this J ~ 1/z^2 risks f32 overflow
+BA_CHI2_TRIM = 1e5   # edges beyond this are excluded from the normal system
+
+
+def ba_edges_ref(mode: str, cam_T, pts, e_cam, e_pt, e_obs, e_stereo, e_info, e_active,
+                 intr: tuple, robust: bool) -> tuple:
+    """Plain version of `ba_edges`: the BA solver's former composition (the
+    edge gathers, ops/ba_core.py's residual Jacobians and weights, the
+    batched products of the block assembly)."""
+    fx, fy, cx, cy, bf = intr
+    Te = cam_T[e_cam]                        # [E, 3, 4]
+    Xe = pts[e_pt]                           # [E, 3]
+    R, t = Te[..., :3], Te[..., 3]
+    pc = torch.einsum("eij,ej->ei", R, Xe) + t
+    z = pc[:, 2]
+    iz = 1.0 / torch.where(z.abs() > 1e-6, z, 1e-6)
+    u = fx * pc[:, 0] * iz + cx
+    v = fy * pc[:, 1] * iz + cy
+    ur = u - bf * iz
+    res = torch.stack(
+        [u - e_obs[:, 0], v - e_obs[:, 1],
+         torch.where(e_stereo, ur - e_obs[:, 2], 0.0)], dim=-1)
+    chi2, w = BC.chi2_and_weight(res, e_stereo, e_info, robust)
+    if mode == "chi2":
+        return chi2, z
+    # the accept/reject objective is the (robust) cost the step models
+    rho = BC.robust_cost(chi2, e_stereo, robust)
+    cost = torch.where(e_active & (z > BA_MIN_DEPTH),
+                       torch.clamp(rho, max=BA_CHI2_TRIM), 0.0)
+    if mode == "cost":
+        return (cost,)
+    Jp, Jpc = BC.residual_jacobians(pc, e_stereo, fx, fy, bf)
+    Jpt = Jpc @ R                            # world-point Jacobian [E, 3, 3]
+    # depth floor + hopeless-outlier trim: near-zero depth makes J ~ 1/z^2
+    # overflow f32 in the H assembly
+    usable = e_active & (z > BA_MIN_DEPTH) & (chi2 < BA_CHI2_TRIM)
+    m = usable.to(torch.float32) * w * e_info
+    Jpm = Jp * m[:, None, None]
+    Jptm = Jpt * m[:, None, None]
+    return (Jpm.transpose(1, 2) @ Jp, -torch.einsum("eri,er->ei", Jpm, res),
+            Jptm.transpose(1, 2) @ Jpt, -torch.einsum("eri,er->ei", Jptm, res),
+            Jpm.transpose(1, 2) @ Jpt, m, cost)
+
+
+_EPS32 = 2.0 ** -24  # float32's unit roundoff
+
+
+def ba_edges_bound(mode: str, cam_T, pts, e_cam, e_pt, e_obs, e_stereo, e_info, e_active,
+                   intr: tuple, robust: bool, units: float) -> list:
+    """How far float32 rounding of `units` units of 2^-24 can move each
+    output of `ba_edges`, in float64 (tests and chip_smoke.py hold the kernel
+    to the plain version within it): `units` 2^-24 times the output's
+    absolute terms (its last products and sums over absolute values), plus
+    the largest change of the float64 plain version when the camera-frame
+    point's coordinate i moves by `units` 2^-24 (|R_i| |X| + |t_i|), the
+    size of its rounding, or an observation's by `units` 2^-24 2 |obs|, that
+    of the residual's difference, either way, each in turn, the changes
+    added up. A threshold within that reach (the Huber weight's kink, the
+    depth floor, the chi2 trim) shows in the change."""
+    f64 = [a.double() if a.is_floating_point() else a
+           for a in (cam_T, pts, e_cam, e_pt, e_obs, e_stereo, e_info, e_active)]
+    # each edge its own pose, so that its camera-frame point moves alone
+    edges = torch.arange(e_cam.shape[0], device=e_cam.device)
+    base = [f64[0][e_cam], f64[1], edges, *f64[3:]]
+    ref = ba_edges_ref(mode, *base, intr, robust)
+    R, t, X = base[0][..., :3], base[0][..., 3], base[1][e_pt]
+    pc_abs = torch.einsum("eij,ej->ei", R.abs(), X.abs()) + t.abs()
+    bound = [units * _EPS32 * a for a in _edge_abs_terms(mode, base, ref, pc_abs, intr)]
+    for i in range(6):  # camera-frame coordinates, then observation coordinates
+        k, col = (0, i) if i < 3 else (4, i - 3)
+        step = units * _EPS32 * (pc_abs[:, i] if i < 3 else 2 * base[4][:, col].abs())
+        changes = []
+        for sign in (1.0, -1.0):
+            moved = list(base)
+            moved[k] = base[k].clone()
+            if k == 0:
+                moved[0][:, col, 3] += sign * step
+            else:
+                moved[4][:, col] += sign * step
+            changes.append([(d - r).abs() for d, r in
+                            zip(ba_edges_ref(mode, *moved, intr, robust), ref)])
+        bound = [b + torch.maximum(up, down) for b, up, down in zip(bound, *changes)]
+    return bound
+
+
+def _edge_abs_terms(mode: str, inputs: tuple, ref: tuple, pc_abs, intr: tuple) -> list:
+    """Each output of `ba_edges` over the absolute values of its terms, at
+    the float64 values `ref`: the Jacobians, residual and weight it is made
+    of, and the products and sums that make it."""
+    if mode == "chi2":  # chi2 is a sum of squares; z = pc's depth
+        return [ref[0].abs(), pc_abs[:, 2]]
+    if mode == "cost":
+        return [ref[0].abs()]
+    fx, fy, cx, cy, bf = intr
+    cam_T, pts, e_cam, e_pt, e_obs, e_stereo = inputs[:6]
+    R = cam_T[e_cam][..., :3]
+    pc = torch.einsum("eij,ej->ei", R, pts[e_pt]) + cam_T[e_cam][..., 3]
+    iz = 1.0 / pc[:, 2].abs()
+    iz2, zero, st = iz * iz, torch.zeros_like(iz), e_stereo.double()
+    J = torch.stack([torch.stack([fx * iz, zero, fx * pc[:, 0].abs() * iz2], -1),
+                     torch.stack([zero, fy * iz, fy * pc[:, 1].abs() * iz2], -1),
+                     st[:, None] * torch.stack(
+                         [fx * iz, zero, (fx * pc[:, 0].abs() + bf) * iz2], -1)], 1)
+    skew = torch.stack([torch.stack([zero, pc_abs[:, 2], pc_abs[:, 1]], -1),
+                        torch.stack([pc_abs[:, 2], zero, pc_abs[:, 0]], -1),
+                        torch.stack([pc_abs[:, 1], pc_abs[:, 0], zero], -1)], 1)
+    m = ref[5].abs()[:, None, None]
+    Jp, Jpt = torch.cat([J, J @ skew], -1), J @ R.abs()
+    u = fx * pc[:, 0] / pc[:, 2] + cx
+    res = torch.stack([u - e_obs[:, 0], fy * pc[:, 1] / pc[:, 2] + cy - e_obs[:, 1],
+                       st * (u - bf / pc[:, 2] - e_obs[:, 2])], -1).abs()
+    return [(Jp * m).mT @ Jp, torch.einsum("eri,er->ei", Jp * m, res), (Jpt * m).mT @ Jpt,
+            torch.einsum("eri,er->ei", Jpt * m, res), (Jp * m).mT @ Jpt, m[:, 0, 0],
+            ref[6].abs()]
+
+
+def ba_edges(mode: str, cam_T: torch.Tensor, pts: torch.Tensor, e_cam: torch.Tensor,
+             e_pt: torch.Tensor, e_obs: torch.Tensor, e_stereo: torch.Tensor,
+             e_info: torch.Tensor, e_active: torch.Tensor, intr: tuple, robust: bool,
+             out=None) -> tuple:
+    """The BA solver's per-edge linearization: each edge's projection of
+    point pts[e_pt] by pose cam_T[e_cam] [3, 4] against its observation
+    e_obs (u, v, u_r; the third row for stereo edges alone), at
+    intr = (fx, fy, cx, cy, bf), with the Huber weight and cost where
+    `robust`. Returns BA_EDGE_OUTPUTS[mode], each [E, ...] float32 in edge
+    order:
+
+    - "blocks": the edge's terms of the normal equations, Hcc = (Jp m)^T
+      Jp [6, 6], bc = -(Jp m)^T res [6], Hpp = (Jpt m)^T Jpt [3, 3],
+      bp = -(Jpt m)^T res [3], W = (Jp m)^T Jpt [6, 3] (Jp, Jpt the pose
+      and point Jacobians), the weight m (0 for an edge not active, at a
+      depth up to BA_MIN_DEPTH or with chi2 from BA_CHI2_TRIM), and the
+      edge's term of the cost (0 for an edge not active or not in front);
+    - "cost": that term alone, and no Jacobian;
+    - "chi2": chi2 and the depth z alone.
+
+    cam_T [C, 3, 4], pts [P, 3], e_obs [E, 3], e_info [E] float32; e_cam,
+    e_pt int64 [E], each in range (not checked on a card: that would read
+    back); e_stereo, e_active bool [E]; contiguous on a card. out: tensors
+    of those shapes to write into."""
+    if mode not in BA_EDGE_OUTPUTS:
+        raise ValueError(f"ba_edges: mode {mode!r} is not one of {tuple(BA_EDGE_OUTPUTS)}")
+    E = e_cam.shape[0] if e_cam.dim() == 1 else -1
+    named = [("cam_T", cam_T, torch.float32, (cam_T.shape[0], 3, 4)),
+             ("pts", pts, torch.float32, (pts.shape[0], 3)),
+             ("e_cam", e_cam, torch.int64, (E,)), ("e_pt", e_pt, torch.int64, (E,)),
+             ("e_obs", e_obs, torch.float32, (E, 3)),
+             ("e_stereo", e_stereo, torch.bool, (E,)),
+             ("e_info", e_info, torch.float32, (E,)),
+             ("e_active", e_active, torch.bool, (E,))]
+    for name, t, dtype, shape in named:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"ba_edges: {name} expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != cam_T.device:
+            raise ValueError(f"ba_edges: {name} on {t.device}, cam_T on {cam_T.device}")
+    device = cam_T.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no ba_edges kernel for device {device}")
+    names = BA_EDGE_OUTPUTS[mode]
+    outs = _outputs("ba_edges", out, [((E, *_EDGE_ROWS[k]), torch.float32) for k in names],
+                    device)
+    args = (cam_T, pts, e_cam, e_pt, e_obs, e_stereo, e_info, e_active)
+    if device.type == "cpu":
+        return _plain_into(outs, ba_edges_ref(mode, *args, intr, robust))
+    if not all(t.is_contiguous() for t in args) or cam_T.data_ptr() % 16:
+        raise ValueError("ba_edges: the inputs on the card must be contiguous, cam_T "
+                         "16-byte aligned")
+    got = dict(zip(names, outs))
+    if ("Hcc" in got and got["Hcc"].data_ptr() % 16
+            or any(k in got and got[k].data_ptr() % 8 for k in ("bc", "W"))):
+        raise ValueError("ba_edges: out= Hcc must be 16-byte aligned, bc and W 8-byte")
+    if E:
+        consts = (BA_MIN_DEPTH, BA_CHI2_TRIM, BC.CHI2_MONO, BC.CHI2_STEREO)
+        ptrs = [got[k].data_ptr() if k in got else None for k in _EDGE_ROWS]
+        _launch(ba_edges, "ba_edges", device, 0 if mode == "blocks" else 1,
+                *(t.data_ptr() for t in args), (ctypes.c_float * 5)(*intr),
+                (ctypes.c_float * 4)(*consts), int(robust), *ptrs, E)
+    return tuple(outs)
+
+
+_WRAPPERS = (hamming_matrix, hamming_best2, bow_assign, seg_sum, schur_matvec, ba_edges)
 
 
 def reset_launch_counts() -> None:

@@ -64,7 +64,7 @@ def test_endurance_run_matches_the_jax_script():
     assert port["kf_created_total"] - port["kf_culled"] == port["keyframes"]
     assert port["device"] == "cpu" and port["max_keyframes"] == 512
     assert port["launches"] == {"hamming_matrix": {}, "hamming_best2": {}, "bow_assign": {},
-                                "seg_sum": {}, "schur_matvec": {}}
+                                "seg_sum": {}, "schur_matvec": {}, "ba_edges": {}}
     assert port["ate_m"] < 0.05 and jax["ate_m"] < 0.05
 
 
