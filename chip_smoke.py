@@ -316,6 +316,9 @@ SYNC_MONO_FRAMES = 40
 GATES = {"rgbd": (0.9, 0.03), "stereo": (0.9, 0.03), "mono": (0.9, 0.08)}
 KERNELS = ("hamming_matrix", "hamming_best2", "bow_assign", "seg_sum", "schur_matvec",
            "ba_edges")
+# the BA solver's CG graph (ops/ba.py `_CGGraph`): captures and replays by
+# caller, kept beside the kernels' launches (a replay counts no launch)
+GRAPH_COUNTS = ("pcg_graph.captures", "pcg_graph.replays")
 N_BLANK = 3            # blank frames of the blackout
 RELOC_TRIES = 4        # frames a relocalization may take
 RELOC_ON_FRAMES = 12   # frames tracked on after it
@@ -1202,7 +1205,10 @@ def launch_counts(CK) -> dict:
     if CK.bow_assign.packed_on_the_fly:
         raise AssertionError(f"{CK.bow_assign.packed_on_the_fly} bow_assign calls "
                              "packed the children-block table on the fly")
-    return {name: dict(getattr(CK, name).launches_by) for name in KERNELS}
+    counts = {name: dict(getattr(CK, name).launches_by) for name in KERNELS}
+    counts["pcg_graph.captures"] = dict(CK.pcg_graph.captures_by)
+    counts["pcg_graph.replays"] = dict(CK.pcg_graph.replays_by)
+    return counts
 
 
 def _se3(T: np.ndarray) -> np.ndarray:
@@ -2365,7 +2371,8 @@ def check_endurance_smoke(CK) -> dict:
     fails = []
     if set(rec) != set(ENDURANCE_KEYS) | {"launches", "max_keyframes"}:
         fails.append(f"keys {sorted(rec)}")
-    if rec["launches"] != launches or rec["device"] != T.card_line():
+    if (rec["launches"] != {k: launches[k] for k in KERNELS}
+            or rec["device"] != T.card_line()):
         fails.append(f"launches {rec['launches']}, device {rec['device']}")
     if rec["tracked"] < ENDURANCE_MIN_TRACKED:
         fails.append(f"tracked {rec['tracked']} (gate {ENDURANCE_MIN_TRACKED})")
@@ -3048,6 +3055,10 @@ def main() -> int:
           f"{launches_by}; synchronous "
           f"paths: "
           f"{({k: total(others, k) for k in KERNELS})}", flush=True)
+    print(f"phase 9: the CG graph's captures and replays by caller on the same paths: "
+          f"{({k: total(main_path, k) for k in GRAPH_COUNTS})}; synchronous paths: "
+          f"{({k: total(others, k) for k in GRAPH_COUNTS})}; shapes captured in this "
+          f"process: {len(BA._cg_graphs)}", flush=True)
     print(f"seconds per phase: {json.dumps(phase_seconds)}; "
           f"{time.perf_counter() - t_start:.1f} s since the start", flush=True)
 

@@ -28,13 +28,18 @@ replaces g2o's sparse BlockSolver_6_3 + OptimizationAlgorithmLevenberg:
   (5.991 mono, 7.815 stereo), 10 more without (src/Optimizer.cpp:790-841).
 
 Nothing is read back from the device inside a solve: the LM and CG
-iterations are Python loops of device ops.
+iterations are Python loops of device ops. On a card the CG loop of an
+unsharded solve is a CUDA graph, captured once a problem shape and
+replayed every LM iteration (`_CGGraph`): the host launches it once in
+place of its 24 steps' vector ops.
 
 Each phase is a span (utils/metrics.py), opened where its ops are launched:
 `ba.solve`, `ba.plans`, `ba.lm` (an LM iteration), `ba.edge_terms` (every
 `ba_edges` call: the LM's blocks, the trial cost, the classification),
 `ba.assemble` (the block sums, the Hpp inverse and the Schur right-hand
-side), `ba.pcg` with `ba.pcg.matvec` (one a CG step) or
+side), `ba.pcg` with `ba.pcg.matvec` (one a CG step, where the loop runs
+eagerly or is captured) and `ba.pcg.replay` (one a graph's replay: the
+profiler puts the replayed kernels down to its `cudaGraphLaunch`) or
 `ba.dense_schur`, `ba.apply` (back-substitution and accept/reject) and
 `ba.classify`. While spans are recorded, a device trace's kernels and idle
 gaps can be put down to the phase that launched them.
@@ -48,6 +53,8 @@ replicated values, so every rank takes the same branch.
 """
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -211,29 +218,24 @@ def _lm_iteration(p: BAProblem, plans: BAPlans, cam_T, pts, lam, e_active, fx,
 
 
 @spanned("ba.pcg.matvec")
-def _schur_mv(x, plans: BAPlans, Hcc_d, terms: CK.SchurTerms, free_cam, group=None):
+def _schur_mv(x, plan: CK.SchurPlan, Hcc_d, terms: CK.SchurTerms, free_cam, group=None):
     """S x, S = Hcc_d - W Hpp^-1 W^T the reduced camera system, matrix free,
     restricted to the free cameras: one order-fixed kernel pair
     (`schur_matvec`). A rank of a sharded solve takes the pair's coupling
     part alone and sums it over the ranks before subtracting it."""
     if group is None:
-        return CK.schur_matvec(x, terms, plans.schur, free_cam, Hcc_d)
+        return CK.schur_matvec(x, terms, plan, free_cam, Hcc_d)
     x = x * free_cam
-    s = CK.schur_matvec(x, terms, plans.schur, free_cam)
+    s = CK.schur_matvec(x, terms, plan, free_cam)
     y = torch.einsum("cij,cj->ci", Hcc_d, x) - COL.all_reduce([s], group)[0]
     return y * free_cam
 
 
-@spanned("ba.pcg")
-def _pcg(plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
-         group=None):
-    """Block-Jacobi preconditioned CG on the reduced camera system, matrix
-    free: S @ x costs two passes over the edges (`_schur_mv`), on terms laid
-    out for them once (`schur_terms`)."""
-    terms = CK.schur_terms(W, Hpp_inv, plans.schur)
-    eye6 = torch.eye(6, device=Hcc_d.device)
-    Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * eye6)[0]
-
+def _cg_steps(plan: CK.SchurPlan, Hcc_d, terms: CK.SchurTerms, Minv, rhs, free_cam,
+              cg_iters: int, group=None):
+    """The CG loop from x = 0, preconditioned by the block inverses Minv:
+    the first residual's z, pdir and rz, then `cg_iters` steps. Its ops
+    are what a graph of the loop captures (`_CGGraph`)."""
     def precond(r):
         return torch.einsum("cij,cj->ci", Minv, r) * free_cam
 
@@ -243,7 +245,7 @@ def _pcg(plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
     pdir = z
     rz = torch.sum(r * z)
     for _ in range(cg_iters):
-        Ap = _schur_mv(pdir, plans, Hcc_d, terms, free_cam, group)
+        Ap = _schur_mv(pdir, plan, Hcc_d, terms, free_cam, group)
         denom = torch.sum(pdir * Ap)
         # Krylov breakdown guard: along a near-null (gauge) direction
         # denom ~ 0; freeze the iterate there instead of dividing
@@ -258,6 +260,111 @@ def _pcg(plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
         pdir = z + beta * pdir
         rz = rz_new
     return x
+
+
+class _CGGraph:
+    """The CG loop of one problem shape as a CUDA graph, and the buffers it
+    reads at their fixed addresses. `run` fills them from an LM iteration's
+    tensors (W's rows in the plans' orders by `schur_terms` itself; the
+    matvec plan's tensors once a solve), captures the graph on its first
+    call, replays it on the current stream and returns a copy of its x.
+    Each buffer takes the layout of the tensor that fills it (`inv_ex`
+    returns Minv column-major), so the graph runs the eager loop's kernels
+    on the same values and gives its bits. The lock and the event after
+    the last replay order the users of different threads and streams."""
+
+    def __init__(self, plan: CK.SchurPlan, Hcc_d, Minv, rhs, free_cam, cg_iters: int):
+        C, P, E = plan.cam.n, plan.pt.n, plan.cam.perm.shape[0]
+        dev = rhs.device
+        self.cg_iters = cg_iters
+        self.lock = threading.Lock()
+        self.graph = self.x = self.done = None
+        self.sources = (None,) * 4  # weak refs to the plan tensors last copied in
+        self.inputs = [torch.empty_like(t) for t in (Hcc_d, Minv, rhs, free_cam)]
+        self.terms = (torch.empty((P, 3, 3), device=dev),
+                      torch.empty((E, 6, 3), device=dev), torch.empty((E, 6, 3), device=dev))
+        # the matvec reads the plans' offsets and each row's other index;
+        # perm, idx and seg only give it E and the device
+        stand_in = torch.zeros((), dtype=torch.int32, device=dev).expand(E)
+        self.plan = CK.SchurPlan(
+            CK.SegPlan(stand_in, stand_in, torch.empty_like(plan.cam.offsets), stand_in, C),
+            CK.SegPlan(stand_in, stand_in, torch.empty_like(plan.pt.offsets), stand_in, P),
+            torch.empty_like(plan.cam_pt), torch.empty_like(plan.pt_cam))
+
+    def run(self, plan: CK.SchurPlan, W, Hpp_inv, Hcc_d, Minv, rhs, free_cam):
+        stream = torch.cuda.current_stream(rhs.device)
+        with self.lock:
+            if self.done is not None:
+                stream.wait_event(self.done)
+            sources = (plan.cam.offsets, plan.pt.offsets, plan.cam_pt, plan.pt_cam)
+            if any(ref is None or ref() is not t for ref, t in zip(self.sources, sources)):
+                for buf, t in zip((self.plan.cam.offsets, self.plan.pt.offsets,
+                                   self.plan.cam_pt, self.plan.pt_cam), sources):
+                    buf.copy_(t)
+                self.sources = tuple(weakref.ref(t) for t in sources)
+            terms = CK.schur_terms(W, Hpp_inv, plan, out=self.terms)
+            for buf, t in zip(self.inputs, (Hcc_d, Minv, rhs, free_cam)):
+                buf.copy_(t)
+            if self.graph is None:
+                self._capture(terms)
+            with span("ba.pcg.replay"):
+                self.graph.replay()
+            CK.pcg_graph.count("replays")
+            x = self.x.clone()
+            self.done = stream.record_event()
+        return x
+
+    def _capture(self, terms: CK.SchurTerms):
+        """Capture the loop (torch.cuda.graph waits for the device first);
+        another thread's work goes on meanwhile. Work queued on the
+        capturing stream by any thread would join the graph, so it comes
+        from the high-priority pool, which none of the port's side streams
+        (the mapper's, GlobalBA's) are taken from, and captures take turns."""
+        Hcc_d, Minv, rhs, free_cam = self.inputs
+        graph = torch.cuda.CUDAGraph()
+        with _cg_capture_lock, torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(rhs.device, priority=-1),
+                capture_error_mode="thread_local"):
+            self.x = _cg_steps(self.plan, Hcc_d, terms, Minv, rhs, free_cam, self.cg_iters)
+        self.graph = graph
+        CK.pcg_graph.count("captures")
+
+
+# the CG graph of each (device, C, P, E, cg_iters), captured once a process
+_cg_graphs: dict = {}
+_cg_graphs_lock = threading.Lock()
+_cg_capture_lock = threading.Lock()
+
+
+def _cg_graph(plan: CK.SchurPlan, Hcc_d, Minv, rhs, free_cam, cg_iters: int) -> _CGGraph:
+    key = (rhs.device, plan.cam.n, plan.pt.n, plan.cam.perm.shape[0], cg_iters)
+    with _cg_graphs_lock:
+        graph = _cg_graphs.get(key)
+        if graph is None:
+            graph = _cg_graphs[key] = _CGGraph(plan, Hcc_d, Minv, rhs, free_cam, cg_iters)
+    return graph
+
+
+def _graphed(device: torch.device, group) -> bool:
+    """Whether `_pcg` runs its loop as a CUDA graph: on a card, for a solve
+    in this process alone (a sharded rank's matvec all-reduces)."""
+    return device.type == "cuda" and group is None
+
+
+@spanned("ba.pcg")
+def _pcg(plans: BAPlans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters: int,
+         group=None):
+    """Block-Jacobi preconditioned CG on the reduced camera system, matrix
+    free: S @ x costs two passes over the edges (`_schur_mv`), on terms laid
+    out for them once (`schur_terms`). On a card, a whole solve's loop
+    (`group` None) is a CUDA graph replayed each LM iteration (`_CGGraph`);
+    a sharded rank's matvec all-reduces, so its loop runs eagerly."""
+    Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * torch.eye(6, device=Hcc_d.device))[0]
+    if not _graphed(Hcc_d.device, group):
+        terms = CK.schur_terms(W, Hpp_inv, plans.schur)
+        return _cg_steps(plans.schur, Hcc_d, terms, Minv, rhs, free_cam, cg_iters, group)
+    return _cg_graph(plans.schur, Hcc_d, Minv, rhs, free_cam, cg_iters).run(
+        plans.schur, W, Hpp_inv, Hcc_d, Minv, rhs, free_cam)
 
 
 @spanned("ba.apply")

@@ -56,7 +56,9 @@ it runs its plain version, which is also what tests and chip_smoke.py compare
 the kernel with. `<wrapper>.launches` counts kernel launches, and
 `<wrapper>.launches_by` splits them by caller: the launches a thread makes
 inside `launches_counted_as(name)` count under `name`, the others under
-"tracker"; the block is also a span `name` (utils/metrics.py). Every
+"tracker"; the block is also a span `name` (utils/metrics.py). A CUDA
+graph's kernels count at its capture; `pcg_graph` counts the captures and
+replays of the BA solver's CG loop by caller the same way. Every
 wrapper takes `out=`, tensors to write its results into (chip_smoke.py puts
 guard rows around them), checked like its inputs.
 
@@ -605,13 +607,24 @@ class SchurTerms(NamedTuple):
     by_pt: torch.Tensor | None
 
 
-def schur_terms(W: torch.Tensor, Hpp_inv: torch.Tensor, plan: SchurPlan) -> SchurTerms:
+def schur_terms(W: torch.Tensor, Hpp_inv: torch.Tensor, plan: SchurPlan,
+                out: tuple | None = None) -> SchurTerms:
     """The matvec's terms for the CG steps of one LM iteration (three copies
-    on a card, none on the CPU)."""
+    on a card, none on the CPU). out: on a card, the three tensors to copy
+    Hpp_inv and W's rows by camera and by point into (a CUDA graph's
+    buffers, ops/ba.py `_CGGraph`)."""
     if W.device.type == "cpu":
         return SchurTerms(W, Hpp_inv, None, None)
-    return SchurTerms(W, Hpp_inv.contiguous(), W.index_select(0, plan.cam.perm),
-                      W.index_select(0, plan.pt.perm))
+    if out is None:
+        return SchurTerms(W, Hpp_inv.contiguous(), W.index_select(0, plan.cam.perm),
+                          W.index_select(0, plan.pt.perm))
+    rows = (W.shape[0], 6, 3)
+    hinv, by_cam, by_pt = _outputs("schur_terms", out, [
+        ((Hpp_inv.shape[0], 3, 3), torch.float32), (rows, torch.float32),
+        (rows, torch.float32)], W.device)
+    return SchurTerms(W, hinv.copy_(Hpp_inv),
+                      torch.index_select(W, 0, plan.cam.perm, out=by_cam),
+                      torch.index_select(W, 0, plan.pt.perm, out=by_pt))
 
 
 def schur_matvec_ref(x: torch.Tensor, W: torch.Tensor, Hpp_inv: torch.Tensor,
@@ -874,12 +887,39 @@ def ba_edges(mode: str, cam_T: torch.Tensor, pts: torch.Tensor, e_cam: torch.Ten
 _WRAPPERS = (hamming_matrix, hamming_best2, bow_assign, seg_sum, schur_matvec, ba_edges)
 
 
+class GraphCounts:
+    """How often a CUDA graph was captured and replayed, in all and by
+    caller (`captures_by`, `replays_by`), split as a wrapper's
+    `launches_by` is. A replay launches the captured kernels without
+    counting them on their wrappers: their launches count once, at the
+    capture."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.captures = self.replays = 0
+        self.captures_by, self.replays_by = {}, {}
+
+    def count(self, what: str) -> None:
+        """Count one of `what` ("captures" or "replays")."""
+        with _count_lock:
+            setattr(self, what, getattr(self, what) + 1)
+            by = getattr(self, what + "_by")
+            who = M.current_caller("tracker")
+            by[who] = by.get(who, 0) + 1
+
+
+pcg_graph = GraphCounts()  # the BA solver's CG loop (ops/ba.py `_CGGraph`)
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
         for wrapper in _WRAPPERS:
             wrapper.launches = 0
             wrapper.launches_by = {}
         bow_assign.packed_on_the_fly = 0
+        pcg_graph.reset()
 
 
 def launches_counted_as(name: str) -> M.caller_span:

@@ -16,7 +16,15 @@ read 1.3e-7 at the global BA's shape; a row left out or added twice moves
 an output by about its sum of absolute terms over the rows a segment, 5e-4
 at that shape, so the bound still sees one. Two calls, and two CG solves,
 must give equal bits.
+
+On a card the CG loop of an unsharded solve is a CUDA graph (ops/ba.py
+`_CGGraph`): its replays must give the eager loop's bits, for one shape and
+for two in turns, for another problem at the same shape and from two
+threads. On the CPU the loop stays eager and gives the unfactored loop's
+bits.
 """
+import threading
+
 import pytest
 import torch
 
@@ -93,7 +101,7 @@ def test_the_matvec_is_the_parents_composition_bit_for_bit(case, sharded, monkey
         monkeypatch.setattr(COL.dist, "all_reduce", lambda t, group=None: None)
     want = parents_matvec(x, plans, Hcc_d, Hpp_inv, W, free, group)
     with M.recording() as spans:
-        got = TBA._schur_mv(x, plans, Hcc_d, CK.schur_terms(W, Hpp_inv, plans.schur), free,
+        got = TBA._schur_mv(x, plans.schur, Hcc_d, CK.schur_terms(W, Hpp_inv, plans.schur), free,
                             group)
     assert got.dtype == torch.float32 and torch.equal(got, want)
     assert torch.equal(got[free[:, 0] == 0], torch.zeros_like(got[free[:, 0] == 0]))
@@ -157,6 +165,143 @@ def test_the_wrapper_checks_its_inputs_and_launches_nothing_on_the_cpu():
     assert CK.schur_matvec.launches == 0 and CK.schur_matvec.launches_by == {}
 
 
+def parents_pcg(plans, Hcc_d, Hpp_inv, W, rhs, free_cam, cg_iters, group=None):
+    """_pcg as the solver ran it before its loop was factored out."""
+    terms = CK.schur_terms(W, Hpp_inv, plans.schur)
+    eye6 = torch.eye(6, device=Hcc_d.device)
+    Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * eye6)[0]
+
+    def precond(r):
+        return torch.einsum("cij,cj->ci", Minv, r) * free_cam
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    pdir = z
+    rz = torch.sum(r * z)
+    for _ in range(cg_iters):
+        Ap = TBA._schur_mv(pdir, plans.schur, Hcc_d, terms, free_cam, group)
+        denom = torch.sum(pdir * Ap)
+        ok = denom > 1e-12
+        alpha = torch.where(ok, rz / torch.where(ok, denom, 1.0), 0.0)
+        x = x + alpha * pdir
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        big = rz > 1e-20
+        beta = torch.where(big, rz_new / torch.where(big, rz, 1.0), 0.0)
+        pdir = z + beta * pdir
+        rz = rz_new
+    return x
+
+
+def pcg_inputs(C, P, E, seed, device="cpu"):
+    """_pcg's inputs from `problem`: plans, Hcc_d, Hpp_inv laid out as
+    inv_ex lays it out (column-major), W, a right-hand side zero on the
+    cameras that are not free, free_cam."""
+    x, plans, Hcc_d, Hpp_inv, W, free = problem(C, P, E, seed, device=device,
+                                                no_cams=(1,) if C > 2 else (), masked=0.2)
+    return plans, Hcc_d, Hpp_inv.mT.contiguous().mT, W, x * free, free
+
+
+def no_graph(*args, **kwargs):
+    raise AssertionError("a CUDA graph was asked for")
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["group None", "Counting group"])
+def test_the_cpu_loop_is_the_unfactored_loop_bit_for_bit(sharded, monkeypatch):
+    """On the CPU `_pcg` runs `_cg_steps` eagerly and gives the loop it was
+    factored from bit for bit, with a sharded solve's group too; it asks for
+    no graph and opens no replay span."""
+    plans, Hcc_d, Hpp_inv, W, rhs, free = pcg_inputs(6, 40, 500, seed=9)
+    group = None
+    if sharded:
+        group = COL.Counting(None)
+        monkeypatch.setattr(COL.dist, "all_reduce", lambda t, group=None: None)
+    monkeypatch.setattr(TBA, "_cg_graph", no_graph)
+    CK.reset_launch_counts()
+    want = parents_pcg(plans, Hcc_d, Hpp_inv, W, rhs, free, 24, group)
+    with M.recording() as spans:
+        got = TBA._pcg(plans, Hcc_d, Hpp_inv, W, rhs, free, 24, group)
+    assert torch.equal(got, want)
+    names = [s.name for s in spans]
+    assert names.count("ba.pcg") == 1 and names.count("ba.pcg.matvec") == 24
+    assert "ba.pcg.replay" not in names
+    assert CK.pcg_graph.captures == CK.pcg_graph.replays == 0
+
+
+def test_the_loop_is_a_graph_on_a_card_for_an_unsharded_solve_alone(monkeypatch):
+    """The gate: a card and no group. On the CPU and on a sharded rank the
+    loop runs eagerly; the dense path never reaches `_pcg`, even where the
+    gate would take the graph."""
+    cuda = torch.device("cuda", 0)
+    assert TBA._graphed(cuda, None)
+    assert not TBA._graphed(torch.device("cpu"), None)
+    assert not TBA._graphed(cuda, COL.Counting(None))
+    monkeypatch.setattr(TBA, "_cg_graph", no_graph)
+    arrays, intr = TBA.synthetic_problem(8, 256, 2048, seed=4)
+    prob = TBA.problem_from_numpy(arrays, torch.device("cpu"))
+    CK.reset_launch_counts()
+    TBA.ba_solve(prob, *intr, iters1=1, iters2=1, solver="cg")
+    monkeypatch.setattr(TBA, "_graphed", lambda device, group: True)
+    TBA.ba_solve(prob, *intr, iters1=1, iters2=1, solver="dense")
+    with pytest.raises(AssertionError, match="CUDA graph"):
+        TBA.ba_solve(prob, *intr, iters1=1, iters2=1, solver="cg")
+    assert CK.pcg_graph.captures == CK.pcg_graph.replays == 0
+
+
+def test_one_graph_a_device_shape_and_step_count(monkeypatch):
+    """`_cg_graph` keys its graphs by (device, C, P, E, cg_iters) and makes
+    each once; a new one has captured nothing yet, and its buffers take the
+    layouts of the tensors that fill them (Minv column-major as inv_ex
+    gives it)."""
+    monkeypatch.setattr(TBA, "_cg_graphs", {})
+    CK.reset_launch_counts()
+
+    def graph(C, P, E, cg_iters, seed=0):
+        plans, Hcc_d, Hpp_inv, W, rhs, free = pcg_inputs(C, P, E, seed)
+        Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * torch.eye(6))[0]
+        made = TBA._cg_graph(plans.schur, Hcc_d, Minv, rhs, free, cg_iters)
+        return made, (Hcc_d, Minv, rhs, free)
+
+    first, inputs = graph(6, 40, 500, 24)
+    assert graph(6, 40, 500, 24, seed=1)[0] is first  # other edges, the same shape
+    others = [graph(6, 40, 500, 12)[0], graph(6, 40, 501, 24)[0],
+              graph(6, 41, 500, 24)[0], graph(7, 40, 500, 24)[0]]
+    assert len({id(g) for g in [first, *others]}) == 5
+    cpu = torch.device("cpu")
+    assert set(TBA._cg_graphs) == {(cpu, 6, 40, 500, 24), (cpu, 6, 40, 500, 12),
+                                   (cpu, 6, 40, 501, 24), (cpu, 6, 41, 500, 24),
+                                   (cpu, 7, 40, 500, 24)}
+    assert first.graph is None and CK.pcg_graph.captures == 0
+    for buf, t in zip(first.inputs, inputs):
+        assert buf.shape == t.shape and buf.stride() == t.stride() and buf is not t
+    assert inputs[1].stride() != (36, 6, 1)  # the column-major layout is kept
+    assert [tuple(t.shape) for t in first.terms] == [(40, 3, 3), (500, 6, 3), (500, 6, 3)]
+    plan = first.plan
+    assert (plan.cam.n, plan.pt.n, tuple(plan.cam.offsets.shape),
+            tuple(plan.pt.offsets.shape)) == (6, 40, (7,), (41,))
+    assert tuple(plan.cam_pt.shape) == tuple(plan.pt_cam.shape) == (500,)
+    assert plan.cam.perm.shape == (500,) and plan.cam.perm.stride() == (0,)
+
+
+def test_graph_counts_split_by_caller_and_reset():
+    CK.reset_launch_counts()
+    CK.pcg_graph.count("captures")
+    with CK.launches_counted_as("gba"):
+        CK.pcg_graph.count("captures")
+        CK.pcg_graph.count("replays")
+        with CK.launches_counted_as("entry"):
+            CK.pcg_graph.count("replays")
+        CK.pcg_graph.count("replays")
+    assert (CK.pcg_graph.captures, CK.pcg_graph.replays) == (2, 3)
+    assert CK.pcg_graph.captures_by == {"tracker": 1, "gba": 1}
+    assert CK.pcg_graph.replays_by == {"gba": 2, "entry": 1}
+    CK.reset_launch_counts()
+    assert CK.pcg_graph.captures == CK.pcg_graph.replays == 0
+    assert CK.pcg_graph.captures_by == CK.pcg_graph.replays_by == {}
+
+
 def _abs_terms(x, W, Hpp_inv, plan, free, Hcc=None):
     """Each output's sum of the absolute values of the terms it adds up."""
     free, x = free.double(), x.double().abs()
@@ -212,9 +357,12 @@ def test_cuda_cg_solve_repeats_bit_for_bit_at_the_global_bas_shape():
 
 @pytest.mark.cuda
 def test_cuda_matvec_launches_the_pair_and_no_segment_sum(monkeypatch):
-    """Under the span ba.pcg.matvec, 2 launches of schur_matvec a CG step
-    and none of seg_sum."""
+    """Under the span ba.pcg.matvec, 2 launches of schur_matvec a CG step of
+    the capture (48 at 24 steps) and none of seg_sum; a replay launches
+    nothing through the wrappers, and each LM iteration opens one
+    ba.pcg.replay under ba.pcg."""
     _need_cuda()
+    monkeypatch.setattr(TBA, "_cg_graphs", {})
     seen = []
     launch = CK._launch
 
@@ -226,7 +374,125 @@ def test_cuda_matvec_launches_the_pair_and_no_segment_sum(monkeypatch):
     monkeypatch.setattr(CK, "_launch", counted)
     arrays, intr = TBA.synthetic_problem(16, 2048, 8192, seed=0)
     prob = TBA.problem_from_numpy(arrays, torch.device("cuda"))
-    with M.recording():
-        TBA.ba_solve(prob, *intr, iters1=1, iters2=2, cg_iters=24, solver="cg")
-    under = [w for w, where in seen if where == "ba.pcg.matvec"]
-    assert under.count("schur_matvec") == 2 * 3 * 24 and len(under) == 2 * 3 * 24
+    for solve in range(2):
+        seen.clear()
+        with M.recording() as records:
+            TBA.ba_solve(prob, *intr, iters1=1, iters2=2, cg_iters=24, solver="cg")
+        under = [w for w, where in seen if where == "ba.pcg.matvec"]
+        assert under == ["schur_matvec"] * (2 * 24 if solve == 0 else 0)
+        names = [r.name for r in records]
+        replays = [r for r in records if r.name == "ba.pcg.replay"]
+        assert len(replays) == 3 and all(names[r.parent] == "ba.pcg" for r in replays)
+        assert names.count("ba.pcg.matvec") == (24 if solve == 0 else 0)
+
+
+def eager_solve(prob, intr, **kw):
+    """ba_solve with the CG loop run eagerly, as on a sharded rank."""
+    graphed = TBA._graphed
+    TBA._graphed = lambda device, group: False
+    try:
+        return TBA.ba_solve(prob, *intr, solver="cg", **kw)
+    finally:
+        TBA._graphed = graphed
+
+
+def card_problem(C, P, E, seed):
+    arrays, intr = TBA.synthetic_problem(C, P, E, seed=seed)
+    return TBA.problem_from_numpy(arrays, torch.device("cuda")), intr
+
+
+def assert_same_bits(got, want):
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["local", "global"])
+def test_cuda_pcg_replay_is_the_eager_loop_bit_for_bit(shape, monkeypatch):
+    """`_pcg` by the graph (its capture's first replay, then a replay)
+    against `_cg_steps` run eagerly on the same inputs; the first result
+    is a copy that the second replay leaves alone."""
+    _need_cuda()
+    monkeypatch.setattr(TBA, "_cg_graphs", {})
+    CK.reset_launch_counts()
+    plans, Hcc_d, Hpp_inv, W, rhs, free = pcg_inputs(*CARD_SHAPES[shape], seed=5,
+                                                     device="cuda")
+    Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * torch.eye(6, device="cuda"))[0]
+    want = TBA._cg_steps(plans.schur, Hcc_d, CK.schur_terms(W, Hpp_inv, plans.schur), Minv,
+                         rhs, free, 24)
+    first = TBA._pcg(plans, Hcc_d, Hpp_inv, W, rhs, free, 24)
+    second = TBA._pcg(plans, Hcc_d, Hpp_inv, W, rhs, free, 24)
+    assert torch.equal(first, want) and torch.equal(second, want)
+    assert first.data_ptr() != second.data_ptr()
+    assert (CK.pcg_graph.captures, CK.pcg_graph.replays) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_solve_at_the_cells_shape_is_the_eager_solve_bit_for_bit(monkeypatch):
+    """The cell's solve (1 + 2 LM iterations at C = 512, P = 65,536, E = 1M)
+    twice, the first capturing, against the eager loop's solve."""
+    _need_cuda()
+    monkeypatch.setattr(TBA, "_cg_graphs", {})
+    prob, intr = card_problem(512, 65536, 1048576, seed=0)
+    want = eager_solve(prob, intr, iters1=1, iters2=2)
+    CK.reset_launch_counts()
+    for _ in range(2):
+        assert_same_bits(TBA.ba_solve(prob, *intr, iters1=1, iters2=2, solver="cg"), want)
+    assert (CK.pcg_graph.captures, CK.pcg_graph.replays) == (1, 6)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_takes_each_problems_edges_and_alternates_shapes(monkeypatch):
+    """Two problems with other edges at one shape, then a third shape, in
+    turns: every solve is its eager solve's bits (the buffers, the plan's
+    copies among them, are refilled), one capture a shape."""
+    _need_cuda()
+    monkeypatch.setattr(TBA, "_cg_graphs", {})
+    probs = [card_problem(64, 4096, 32768, seed=s) for s in (1, 2)]
+    probs.append(card_problem(128, 8192, 65536, seed=3))
+    wants = [eager_solve(p, intr, iters1=1, iters2=2) for p, intr in probs]
+    CK.reset_launch_counts()
+    for k in (0, 1, 2, 0, 2, 1):
+        prob, intr = probs[k]
+        assert_same_bits(TBA.ba_solve(prob, *intr, iters1=1, iters2=2, solver="cg"),
+                         wants[k])
+    assert (CK.pcg_graph.captures, CK.pcg_graph.replays) == (2, 18)
+    assert len(TBA._cg_graphs) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_graph_serves_two_threads_on_their_own_streams(monkeypatch):
+    """Two threads, each on a stream of its own as GlobalBA's worker is,
+    solve two problems of one shape at once: each result is its eager
+    solve's bits."""
+    _need_cuda()
+    monkeypatch.setattr(TBA, "_cg_graphs", {})
+    probs = [card_problem(64, 4096, 32768, seed=s) for s in (4, 5)]
+    wants = [eager_solve(p, intr, iters1=1, iters2=2) for p, intr in probs]
+    CK.reset_launch_counts()
+    torch.cuda.synchronize()  # the problems and the eager solves, on the default stream
+    got, errors = [[], []], []
+
+    def worker(k):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for _ in range(3):
+                    prob, intr = probs[k]
+                    got[k].append(TBA.ba_solve(prob, *intr, iters1=1, iters2=2,
+                                               solver="cg"))
+            stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert errors == []
+    for k in (0, 1):
+        assert len(got[k]) == 3
+        for res in got[k]:
+            assert_same_bits(res, wants[k])
+    assert (CK.pcg_graph.captures, CK.pcg_graph.replays) == (1, 18)
