@@ -9,12 +9,19 @@ One GBA is the port's `GlobalBA` schedule: `chunks` calls of
 `ops.ba.ba_solve` with its default solver, each from the last one's poses
 and points, the card synchronised after each; its time runs from the first
 call to the last synchronise. Every GBA of the window starts from the problem as generated
-from the seed. After the window each GBA's poses, points, inlier flags and
-cost are held to the plain float64 BA of reference/ba.py, run once from
-the same problem.
+from the seed. Once its time is taken, each GBA's poses, points, inlier
+flags and cost are copied to the host, so that the card holds no more at
+the window's end than after its first GBA. After the window each GBA's
+copies are held to the plain float64 BA of reference/ba.py, run once from
+the same problem, on the reference's device.
+
+With --trace 1 one GBA of the window, from 40% of it on, runs under the
+profiler with the program's spans recorded (benchmark/spans.py), and is left
+out of the times.
 """
 from __future__ import annotations
 
+import gc
 import time
 import traceback
 
@@ -22,7 +29,7 @@ import torch
 
 from benchmark import counts as CT
 from benchmark import harness as H
-from benchmark import trace as TR
+from benchmark import spans as SP
 from benchmark.reference import ba as REF
 
 
@@ -65,8 +72,9 @@ def gaps(out, ref) -> dict:
 class GBA:
     def __init__(self, ctx):
         from orbslam2_tpu_torch.ops import ba as BA
+        from orbslam2_tpu_torch.utils import metrics as M
 
-        self.BA = BA
+        self.BA, self.M = BA, M
         self.ctx = ctx
         self.t = ctx.traffic
         self.cuda = torch.device(ctx.device).type == "cuda"
@@ -84,6 +92,14 @@ class GBA:
             prob = prob._replace(cam_T=res.cam_T, pts=res.pts)
         return res
 
+    def counts(self) -> tuple:
+        """The wall clock, the allocator's segments taken so far and the
+        collector's passes by generation: read at the window's ends, to show
+        what ran inside it."""
+        segments = (torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                    if self.cuda else 0)
+        return time.time(), segments, [s["collections"] for s in gc.get_stats()]
+
     def run(self) -> H.Run:
         ctx = self.ctx
         if self.cuda:
@@ -92,10 +108,13 @@ class GBA:
         p = problem(ctx)
         self.intrinsics = p["intrinsics"]
         prob = self.BA.BAProblem(**{k: p[k] for k in self.BA.BAProblem._fields})
-        errors, outs, times, spans = [], [], [], []
+        errors, times = [], []
+        self.outs = outs = []  # each GBA's outputs, on the host
         trace, traced = None, None  # the trace, and the index of the GBA it holds
+        records = None  # the program's spans in the traced GBA
         self.gba(prob)  # warm-up: one GBA
         self.sync()
+        counts = [self.counts()]
         t_start = time.perf_counter()
         t_end = t_start + ctx.seconds
         try:
@@ -104,16 +123,18 @@ class GBA:
                            and time.perf_counter() >= t_start + 0.4 * ctx.seconds)
                 t0 = time.perf_counter()
                 if profile:
-                    res, trace = TR.capture(lambda: self.gba(prob))
+                    with self.M.recording() as records:
+                        res, trace = SP.capture(lambda: self.gba(prob))
                     traced = len(times)
                 else:
                     res = self.gba(prob)
                 t1 = time.perf_counter()
-                spans.append(("gba", t0, t1))
-                outs.append((res.cam_T, res.pts, res.e_inlier, res.cost))
+                outs.append(tuple(x.to("cpu", copy=True)
+                                  for x in (res.cam_T, res.pts, res.e_inlier, res.cost)))
                 times.append((t0, t1))
         except Exception:  # noqa: BLE001 - reported, and the run is not correct
             errors.append(traceback.format_exc())
+        counts.append(self.counts())
         memory = torch.cuda.max_memory_allocated() if self.cuda else 0
         done = [i for i, (_, t1) in enumerate(times) if t1 <= t_end]
         del prob
@@ -121,17 +142,22 @@ class GBA:
         if outs:
             ref = REF.global_ba(p, self.t["chunks"], self.t["iters1"], self.t["iters2"],
                                 self.t["cg_iters"])
-            readings = [gaps(o, ref) for o in outs]
+            readings = [gaps(tuple(x.to(ref[0].device) for x in o), ref) for o in outs]
             values = {k: max(r[k] for r in readings) for k in readings[0]}
             failed = sum(not all(c.ok for c in H.checks(readings[i], ctx.workload["name"]))
                          for i in done)
         run = H.Run(setup_s=t_start - ctx.t_process, window_s=ctx.seconds,
                     attempted=len(done), failed=failed,
                     values=values, memory_peak_bytes=memory, chips=1, trace=trace,
-                    spans=spans, errors=errors)
+                    errors=errors)
         # the profiled GBA ran slower under the profiler: left out of the times
         run.data.update(gba_s=[times[i][1] - times[i][0] for i in done if i != traced],
-                        work=work(p, self.t))
+                        work=work(p, self.t),
+                        window={"wall": [c[0] for c in counts],
+                                "new_segments": counts[1][1] - counts[0][1],
+                                "gc_passes": [b - a for a, b in zip(counts[0][2], counts[1][2])]})
+        if records:
+            run.data["program_spans"] = records
         return run
 
 

@@ -139,7 +139,6 @@ class Run:
     chips: int
     data: dict = field(default_factory=dict)
     trace: object = None               # trace.Trace of the traced slice
-    spans: list = field(default_factory=list)  # the harness's (name, start, end) spans
     errors: list = field(default_factory=list)
 
 

@@ -12,7 +12,10 @@ last line of standard output: correct, attempted, failed, metrics (the
 cell's end-to-end metrics, or with --trace 1 its per-layer ones, read from a
 profiled slice of the window), device, with --trace 1 a breakdown, and the
 checks. Exits 2 without enough CUDA devices and 3 if JAX or the JAX package
-was loaded, printing no result in either case.
+was loaded, printing no result in either case. With --detail FILE it also
+writes there what benchmark/spread.py reads: each GBA's time, the window's
+wall-clock ends, and the allocator's new segments and the collector's passes
+inside it.
 """
 import time
 
@@ -47,12 +50,15 @@ def parse(argv=None):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--detail", type=Path,
+                    help="write the window's per-GBA record here (benchmark/spread.py)")
     return ap.parse_args(argv)
 
 
 def result(run, workload: dict, trace: bool, device_kind: str):
     """(checks, the result line) of a finished run."""
     from benchmark import harness as H
+    from benchmark import spans as SP
     from benchmark import trace as TR
 
     checks = H.checks(run.values, workload["name"])
@@ -71,8 +77,15 @@ def result(run, workload: dict, trace: bool, device_kind: str):
         t = run.trace
         device["busy_s"] = TR.busy_s(t.ops, t.t0, t.t1)
         device["window_s"] = t.window_s
-        line["breakdown"] = {"device_ops": TR.top_ops(t.ops),
-                             "idle_gaps": TR.named_gaps(t.ops, t.t0, t.t1, run.spans)}
+        records = run.data.get("program_spans", [])
+        gaps = sorted(SP.attribute_gaps(t, records), key=lambda g: -g[1])[:10]
+        line["breakdown"] = {
+            "device_ops": TR.top_ops(t.ops),
+            # the longest idle gaps, each by the program's innermost span open at it
+            "idle_gaps": [[records[i].name if i >= 0 else SP.NONE, s] for i, s in gaps],
+            # the device seconds of the operations each span launched itself
+            "spans": [[name, r["device_s"]]
+                      for name, r in list(SP.by_span(t, records).items())[:10]]}
     line["checks"] = {c.name: {"value": c.value if c.value == c.value else None,
                                c.rel: c.limit} for c in checks}
     return checks, line
@@ -98,6 +111,8 @@ def main(argv=None) -> int:
                           trace=bool(args.trace), device=torch.device("cuda"),
                           t_process=T_PROCESS, checkout=CHECKOUT)
     run = H.driver(traffic["driver"]).run(ctx)
+    if args.detail is not None:
+        args.detail.write_text(json.dumps({"gba_s": run.data["gba_s"], **run.data["window"]}))
     checks, line = result(run, workload, bool(args.trace), torch.cuda.get_device_name(0))
     bad = H.forbidden_modules()
     if bad:

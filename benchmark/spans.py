@@ -2,9 +2,15 @@
 launched each device operation, and the one the host was in during each
 idle gap.
 
-`capture(fn)` is trace.capture that also keeps the profiler's launch
-records: the CUDA runtime and driver API events (cudaLaunchKernel,
-cudaLaunchKernelExC, cudaMemcpyAsync, cuLaunchKernel, ...). Each carries the
+`capture(fn)` runs a function under torch.profiler with CUDA activity alone
+(CUPTI records the kernels, copies and fills of every thread of the process;
+no host-side op is recorded, so the slice runs at nearly its untraced speed)
+and keeps each device operation as (name, start, end) in seconds on the
+harness's clock (time.perf_counter; the profiler stamps events with the wall
+clock in nanoseconds, and the offset between the two is read at the slice's
+start). It also keeps the profiler's launch records: the CUDA runtime and
+driver API events (cudaLaunchKernel, cudaLaunchKernelExC, cudaMemcpyAsync,
+cuLaunchKernel, ...). Each carries the
 correlation id of the operation it launched and the launching thread: on the
 H100 with torch 2.11 `device_resource_id()` is the low 32 bits of the
 thread's pthread handle, signed (`start_thread_id()` reads 1 for every

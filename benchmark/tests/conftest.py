@@ -37,8 +37,14 @@ def make_gba_ctx(workload: str = "gba-512-cg", seconds: float = 2.0, seed: int =
 @pytest.fixture
 def gba_ctx(monkeypatch):
     """make_gba_ctx, with `ba_solve` on the CG path that the cells' size
-    takes by default: at a cut size its default takes the dense Schur step."""
+    takes by default (at a cut size its default takes the dense Schur step),
+    and on one host thread, as benchmark/run.py sets it: several test
+    workers, each with a thread a core, would slow each other many times
+    over."""
     from orbslam2_tpu_torch.ops import ba as BA
 
     monkeypatch.setattr(BA, "ba_solve", functools.partial(BA.ba_solve, solver="cg"))
-    return make_gba_ctx
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield make_gba_ctx
+    torch.set_num_threads(threads)

@@ -15,7 +15,7 @@ def failing(run, workload):
 
 
 def test_gba_runs_on_the_cpu(gba_ctx):
-    ctx = gba_ctx(cameras=32, points=2048, observations=16384)
+    ctx = gba_ctx(cameras=32, points=2048, observations=16384, seconds=5.0)
     run = H.driver("gba").run(ctx)
     assert not run.errors and run.attempted >= 1
     assert set(run.values) == GBA_NUMBERS
@@ -23,6 +23,27 @@ def test_gba_runs_on_the_cpu(gba_ctx):
     assert len(run.data["gba_s"]) == run.attempted
     checks, line = result(run, ctx.workload, False, "cpu")
     assert set(line["metrics"]) == {"gba_solve_s", "setup_s"}
+
+
+def test_gba_holds_each_gbas_outputs_on_the_host(monkeypatch, gba_ctx):
+    """Each GBA's outputs are copied to the host once its time is taken:
+    the GBA driver keeps none of the tensors the program returned."""
+    from benchmark.drivers import gba as G
+    from orbslam2_tpu_torch.ops import ba as BA
+
+    solve, returned = BA.ba_solve, []
+
+    def kept(*args, **kw):
+        returned.append(solve(*args, **kw))
+        return returned[-1]
+
+    monkeypatch.setattr(BA, "ba_solve", kept)
+    g = G.GBA(gba_ctx(cameras=16, points=512, observations=4096, seconds=2.0))
+    run = g.run()
+    assert run.attempted >= 1 and len(g.outs) >= run.attempted
+    assert all(x.device.type == "cpu" for out in g.outs for x in out)
+    theirs = {x.data_ptr() for r in returned for x in (r.cam_T, r.pts, r.e_inlier, r.cost)}
+    assert not {x.data_ptr() for out in g.outs for x in out} & theirs
 
 
 @pytest.mark.parametrize("fault,number", [("unchanged", "cam_gap_mm"),

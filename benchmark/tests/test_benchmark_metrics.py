@@ -13,8 +13,7 @@ def made_up_trace():
 
 def run_with(**data):
     run = H.Run(setup_s=12.5, window_s=10.0, attempted=4, failed=1, values={},
-                memory_peak_bytes=0, chips=1, trace=data.pop("trace", None),
-                spans=data.pop("spans", []))
+                memory_peak_bytes=0, chips=1, trace=data.pop("trace", None))
     run.data.update(data)
     return run
 
@@ -26,10 +25,6 @@ def test_trace_reductions():
                                              pytest.approx((0.7, 1.0))]
     assert [n for n, _ in TR.top_ops(t.ops)] == ["k2", "k1", "Memcpy HtoD"]
     assert len(t.kernels()) == 2
-    spans = [("gba", 0.65, 0.95), ("warm-up", 0.0, 0.05)]
-    gaps = TR.named_gaps(t.ops, 0.0, 1.0, spans, k=2)
-    assert gaps[0] == ["gba", pytest.approx(0.3)]
-    assert gaps[1] == ["harness", pytest.approx(0.15)]
 
 
 def test_gba_readers():
@@ -41,7 +36,31 @@ def test_gba_readers():
     assert H.reader("setup_s").read(run) == 12.5
 
 
+def test_an_outlier_gba_moves_the_mean_and_the_roofline_and_not_the_median():
+    run = run_with(gba_s=[1.0] * 9 + [11.0], work=(3.35e12, 0), trace=made_up_trace())
+    assert H.reader("gba_solve_s").read(run) == pytest.approx(2.0)
+    assert H.reader("gba_roofline.gba").read(run) == pytest.approx(50.0)
+    assert H.reader("gba_median_s.gba").read(run) == pytest.approx(1.0)
+    assert H.reader("gba_median_s.gba").read(run_with(gba_s=[1.0, 3.0])) == pytest.approx(2.0)
+
+
 def test_readers_with_nothing_to_read_return_none():
     run = run_with()
-    for name in ("gba_solve_s", "kernels_per_gba.gba", "device_idle.gba", "gba_roofline.gba"):
+    for name in ("gba_solve_s", "kernels_per_gba.gba", "device_idle.gba", "gba_roofline.gba",
+                 "gba_median_s.gba"):
         assert H.reader(name).read(run) is None, name
+
+
+SPAN_READERS = {"pcg_device_s.gba": 0.16, "edge_device_s.gba": 0.09,
+                "assemble_device_s.gba": 0.06}
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_READERS))
+def test_span_readers_read_the_program_spans_of_the_traced_gba(name):
+    from test_benchmark_spans import RECORDS, made_up
+
+    assert H.reader(name).read(run_with(trace=made_up())) is None
+    assert H.reader(name).read(run_with(program_spans=RECORDS)) is None
+    assert H.reader(name).read(run_with(trace=made_up_trace(), program_spans=RECORDS)) is None
+    got = H.reader(name).read(run_with(trace=made_up(), program_spans=RECORDS))
+    assert got == pytest.approx(SPAN_READERS[name])

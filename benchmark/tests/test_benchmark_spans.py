@@ -133,3 +133,20 @@ def test_capture_links_every_operation_to_its_launch(card):
     owner = SP.attribute_ops(trace, records)
     assert {records[i].name for i in owner if i >= 0} == {"outer", "inner"}
     assert -1 not in owner
+
+
+def test_the_traced_line_carries_the_span_metrics_and_breakdown():
+    from benchmark import run as R
+
+    run = run_with(made_up(), RECORDS)
+    run.data.update(gba_s=[1.0, 2.0], work=(3.35e12, 0))
+    _, line = R.result(run, H.cell("gba-512-cg"), True, "NVIDIA H100 80GB HBM3")
+    for name in ("pcg_device_s.gba", "edge_device_s.gba", "assemble_device_s.gba"):
+        assert line["metrics"][name]["value"] == pytest.approx(SP.metric(name, run)), name
+    assert "kernels_per_cg_step.gba" not in line["metrics"]
+    bd = line["breakdown"]
+    rows = SP.by_span(made_up(), RECORDS)
+    assert bd["spans"] == [[n, r["device_s"]] for n, r in rows.items()][:10]
+    assert bd["idle_gaps"][0] == ["other", pytest.approx(0.16)]
+    assert len(bd["idle_gaps"]) == 10 and len(bd["device_ops"]) <= 10
+    assert line["device"]["busy_s"] <= line["device"]["window_s"]
